@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
-nvcc. It builds the two CUDA kernels from `metro_pose3d_tpu_torch/csrc/`
-into `build/kernels/`, then runs in phases, one line each:
+nvcc. It builds the four CUDA kernels from `metro_pose3d_tpu_torch/csrc/`
+into `build/kernels/`, then runs in phases:
 
   1 env      torch and CUDA versions, the card's name and power limit
   2 build    nvcc build of the kernel library, in seconds
@@ -18,6 +18,17 @@ into `build/kernels/`, then runs in phases, one line each:
   6 parity   the same path in float32 (TF32 off) on the card and on the CPU
   7 time     kernels against their plain versions, and crops/s of the
              serving forms, with CUDA events (informative only)
+  8 k2       occluder paste kernel against its plain version (atol 1e-5)
+  9 k3-bwd   stem pool backward kernel against the plain backward, ties
+             included: float32 within 1e-6, bf16 within one bf16 ulp of the
+             float32 sum
+ 10 train    the training path at the default Config() (R50@256 bf16, 64 3D
+             + 32 2D rows, 512^2 tiles) through `train()`: 10 steps with a
+             checkpoint at 5, a resume from 5 to 10, then 20 steps on one
+             batch whose loss must fall; all four kernels must have launched
+ 11 t-parity one float32 train step (TF32 off) on the card and on the CPU
+ 12 t-time   K2, K3-bwd and the bf16 train step at B=96 (informative), with
+             a profiler breakdown of the step
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Without CUDA
@@ -27,8 +38,11 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -42,6 +56,13 @@ WARP_TOL = 0.05  # [0,255] units: float32 coordinate ulps through the bilinear w
 # the same path on the CPU (2e-3 mm root-relative, 7e-5 px, 0.1 mm absolute
 # at R50@256), for cuDNN's other summation orders.
 PARITY_TOL = {"pose3d_rootrel": 0.05, "pose2d_px": 0.01, "pose3d_abs": 1.0}
+OCC_TOL = 1e-5  # [0,1] units; the kernel keeps the plain version's order of operations
+N3D, N2D = 64, 32  # rows of a train batch (Config().train.batch_size, batch_size_2d)
+# One float32 train step, card against CPU (R50@128, B=4, TF32 off): the
+# losses are sums over the same forward in another order; the gradient norm
+# also moves where a ReLU input within that roundoff of 0 changes side.
+TRAIN_PARITY_RTOL = {"loss": 1e-4, "loss3d": 1e-4, "loss2d": 1e-4, "grad_norm": 1e-3}
+STATS_ATOL = 1e-4
 
 
 def fail(msg: str):
@@ -121,6 +142,103 @@ def warp_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[ok] - b[ok]).abs().max())
 
 
+def tie_count(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """For each window of the SAME 3x3/2 pool, how many taps equal its max y."""
+    from metro_pose3d_tpu_torch.ops.pool import _same_geometry
+
+    oh, ow, (top, bottom), (left, right) = _same_geometry(x.shape[2], x.shape[3])
+    xp = torch.nn.functional.pad(x.float(), (left, right, top, bottom), value=float("-inf"))
+    return sum((xp[:, :, dy: dy + 2 * oh: 2, dx: dx + 2 * ow: 2] == y.float()).int()
+               for dy in range(3) for dx in range(3))
+
+
+def profile_breakdown(fn, steps: int) -> str:
+    """torch.profiler over `steps` calls of fn: device time per call, the
+    device's busy share of the wall time, the eight aten ops with the most
+    self device time and the port's own kernels, as shares of device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, ops = [], []
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        t = evt.self_cuda_time_total if t is None else t
+        if t > 0:
+            (kernels if evt.device_type == DeviceType.CUDA else ops).append((t, evt.key))
+    total = sum(t for t, _ in kernels)
+    if total == 0:
+        return "[12 t-time] profiler: no device time recorded"
+    names = ("maxpool3x3s2_same_bwd", "maxpool3x3s2_same_kernel", "occluder_paste", "warp_crop")
+    ours = {n: sum(t for t, k in kernels if n in k) for n in names}
+    ops.sort(reverse=True)
+    top = "; ".join(f"{k} {t / total:.1%}" for t, k in ops[:8])
+    mine = "; ".join(f"{n} {t / total:.2%}" for n, t in ours.items())
+    return (f"[12 t-time] profiler, train step: device {total / 1e3 / steps:.2f} ms/step, "
+            f"busy {total / 1e6 / wall:.1%} of wall; top ops by self device time: {top}; "
+            f"port kernels: {mine}")
+
+
+def train_batch(rng, n3, n2, tile, side, n_occ, occ_side=96):
+    """A host train batch in the `example_spec` layout, made with numpy:
+    warps from `crop_params`, a random skeleton about 4 m in front of the
+    crop camera projected into the crop, and occluder and colour parameters
+    drawn as `pipeline/crops.py::sample_aug_params` draws them. The last n2
+    rows are 2D-only (is_3d 0, no 3D validity)."""
+    b, j = n3 + n2, 17
+    h, k, d, intr = crop_params(rng, b, tile, side, "normal")
+    root = np.stack([rng.uniform(-300, 300, b), rng.uniform(-300, 300, b),
+                     rng.uniform(3500, 5000, b)], 1)
+    xyz = (root[:, None] + rng.uniform(-600, 600, (b, j, 3))).astype(np.float32)
+    uv = np.einsum("bij,bkj->bki", intr, xyz)
+    uv = (uv[..., :2] / uv[..., 2:]).astype(np.float32)
+    valid2d = ((uv >= 0) & (uv < side)).all(-1).astype(np.float32)
+    is3d = np.r_[np.ones(n3), np.zeros(n2)].astype(np.float32)
+    do_color = rng.random_sample(b) < 0.8
+    color = np.where(do_color[:, None], np.stack(
+        [rng.uniform(-0.125, 0.125, b), rng.uniform(0.75, 1.25, b),
+         rng.uniform(0.75, 1.25, b), rng.uniform(-0.3, 0.3, b)], 1), [0.0, 1.0, 1.0, 0.0])
+    occ_aff = np.zeros((b, 2, 3))
+    for i in range(b):
+        scale, centre, rot = rng.uniform(0.2, 0.7), rng.uniform(0.1, 0.9, 2), rng.uniform(-np.pi, np.pi)
+        m = np.array([[np.cos(rot), -np.sin(rot)], [np.sin(rot), np.cos(rot)]]) / scale
+        occ_aff[i, :, :2] = m
+        occ_aff[i, :, 2] = occ_side / 2.0 - m @ (centre * side)
+    occ = np.stack([rng.random_sample(b) < 0.7, rng.randint(0, n_occ, b)], 1)
+    return {"source": rng.randint(0, 256, (b, tile, tile, 3), dtype=np.uint8),
+            "warp_h": h, "warp_k": k, "warp_dist": d,
+            "coords3d_true": xyz * is3d[:, None, None], "coords2d_true": uv,
+            "joint_validity": np.repeat(is3d[:, None], j, 1), "joint_validity_2d": valid2d,
+            "is_3d": is3d, "intrinsics": intr, "color_params": color.astype(np.float32),
+            "occ_params": occ.astype(np.float32), "occ_affine": occ_aff.astype(np.float32)}
+
+
+def occluder_case(rng, b, side, n_occ, occ_side=96):
+    """Placements for the K2 check: full-range rotations with +-90 and +-180
+    degrees, scales 1.4-5, centres that put part of the occluder outside
+    the crop, and a 0/1 mix of `enabled`."""
+    rot = rng.uniform(-np.pi, np.pi, b)
+    rot[:4] = [np.pi / 2, -np.pi / 2, np.pi, -np.pi]
+    scale = rng.uniform(1.4, 5.0, b)
+    centre = rng.uniform(-0.2, 1.2, (b, 2)) * side
+    aff = np.zeros((b, 2, 3), np.float32)
+    for i in range(b):
+        m = scale[i] * np.array([[np.cos(rot[i]), -np.sin(rot[i])],
+                                 [np.sin(rot[i]), np.cos(rot[i])]])
+        aff[i, :, :2] = m
+        aff[i, :, 2] = occ_side / 2.0 - m @ centre[i]
+    idx = rng.randint(0, n_occ, b).astype(np.int32)
+    enabled = (rng.random_sample(b) < 0.7).astype(np.float32)
+    crops = rng.uniform(0, 1, (b, side, side, 3)).astype(np.float32)
+    return crops, idx, aff, enabled
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
@@ -131,7 +249,7 @@ def main() -> int:
     from metro_pose3d_tpu_torch.evaluation.engine import TILE_KEYS, PoseEstimator
     from metro_pose3d_tpu_torch.init import init_metro_model
     from metro_pose3d_tpu_torch.kernels import build
-    from metro_pose3d_tpu_torch.ops import pool, warp
+    from metro_pose3d_tpu_torch.ops import occlusion, pool, warp
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(SEED)
@@ -277,15 +395,203 @@ def main() -> int:
             print(f"[7 time] serve {form}-in bf16 {'TTA' if flip_tta else 'no TTA'} B={b}: "
                   f"{ms:.3f} ms/batch, {b / ms * 1e3:.1f} crops/s, peak {peak:.2f} GiB  [{card}]")
 
+    del model, est, fn, args
+    torch.cuda.empty_cache()
+    from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
+    from metro_pose3d_tpu_torch.pipeline.occluders import make_procedural_occluders
+    from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
+    from metro_pose3d_tpu_torch.train.loop import make_train_step
+    from metro_pose3d_tpu_torch.train.state import create_train_state
+    from metro_pose3d_tpu_torch.train.trainer import train
+
+    # 8 K2: occluder paste kernel against its plain version
+    bank_np = make_procedural_occluders(64, 96)
+    bank = pack_occluder_bank_for(bank_np, dev)
+    crops_np, idx_np, aff_np, en_np = occluder_case(rng, 96, side, len(bank_np))
+    k2_args = (torch.from_numpy(crops_np).to(dev), bank,
+               *(torch.from_numpy(a).to(dev) for a in (idx_np, aff_np, en_np)))
+    got, want = occlusion.occlude_cuda(*k2_args), occlusion.occlude_plain(*k2_args)
+    torch.cuda.synchronize()
+    occ_err = float((got - want).abs().max())
+    if not occ_err <= OCC_TOL:
+        fail(f"K2 occluder kernel off its plain version by {occ_err} > {OCC_TOL}")
+    changed = float((got != k2_args[0]).any(-1).float().mean())
+    print(f"[8 k2] occluder paste B=96 {side}^2, bank 64x96^2, rotations to +-180 deg, "
+          f"scales 1.4-5, {int(en_np.sum())}/96 enabled: max abs err {occ_err:.2e} "
+          f"(tol {OCC_TOL}), pixels changed {changed:.3f}")
+
+    # 9 K3 backward: kernel against the plain backward, ties included
+    bwd_err = 0.0
+    for shape, dtype, ties in (((96, 64, 128, 128), torch.bfloat16, False),
+                               ((96, 64, 128, 128), torch.float32, False),
+                               ((8, 64, 127, 129), torch.bfloat16, True),
+                               ((8, 24, 33, 18), torch.float32, True)):
+        x = torch.randn(shape, generator=gen, device=dev)
+        if ties:
+            x = torch.round(x * 4) / 4  # neighbours often equal
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        g = torch.randn((shape[0], shape[1], (shape[2] + 1) // 2, (shape[3] + 1) // 2),
+                        generator=gen, device=dev).to(dtype)
+        got = pool.max_pool_bwd_cuda(x, g)
+        want = pool.max_pool_bwd_plain(x.float(), g.float())  # float32 sums of dtype values
+        err = (got.float() - want).abs()
+        bwd_err = max(bwd_err, float(err.max()))
+        if dtype == torch.float32:
+            ok, note = float(err.max()) <= 1e-6, f"max abs err {float(err.max()):.2e} (tol 1e-6)"
+        else:
+            ulps = float((err / (want.abs() * 2 ** -7).clamp_min(1e-30)).max())
+            same = float((got.float() - pool.max_pool_bwd_plain(x, g).float()).abs().max())
+            ok = bool((err <= want.abs() * 2 ** -7).all())
+            note = (f"max err {ulps:.2f} bf16 ulp of the float32 sum (tol 1), "
+                    f"max abs diff to the bf16 autograd {same:.2e}")
+        if not ok:
+            fail(f"K3 backward kernel off its plain version at {shape} {dtype}: {note}")
+        tied = ""
+        if ties:
+            y = pool.max_pool_plain(x)
+            share = float((tie_count(x, y) > 1).float().mean())
+            tied = f", windows with a tied max {share:.3f}"
+        print(f"[9 k3-bwd] {tuple(shape)} {dtype}: {note}{tied}")
+    del x, g, got, want, err
+
+    # 10 train: the main path of this slice, counting kernel launches
+    t0 = time.perf_counter()
+    host = [train_batch(rng, N3D, N2D, TILE, side, len(bank_np)) for _ in range(10)]
+    print(f"[10 train] 10 host batches of {N3D} 3D + {N2D} 2D rows, {TILE}^2 tiles, made "
+          f"in {time.perf_counter() - t0:.1f} s")
+    over = {"train.checkpoint_every": "5", "train.log_every": "1", "train.validate_every": "0"}
+
+    def run(logdir, extra, batches, steps):
+        tcfg = apply_overrides(Config(), {**over, **extra, "train.logdir": logdir})
+        state = train(tcfg, batches, occluder_bank=bank_np, max_steps=steps)
+        torch.cuda.synchronize()
+        with open(os.path.join(logdir, "history.json")) as f:
+            return state, json.load(f)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        logdir = os.path.join(tmp, "run")
+        pool.LAUNCHES = pool.BWD_LAUNCHES = warp.LAUNCHES = occlusion.LAUNCHES = 0
+        t0 = time.perf_counter()
+        state, hist = run(logdir, {}, iter(host), 10)
+        first_leg = time.perf_counter() - t0
+        # as if the run had been cut after its checkpoint at step 5
+        for name in os.listdir(os.path.join(logdir, "checkpoints")):
+            if name != "5":
+                shutil.rmtree(os.path.join(logdir, "checkpoints", name))
+        if Checkpointer(logdir).latest_step() != 5:
+            fail("the checkpoint of step 5 is missing")
+        warp_before = warp.LAUNCHES
+        resumed, hist2 = run(logdir, {}, iter(host), 10)
+        train_launches = {"pool": pool.LAUNCHES, "pool_bwd": pool.BWD_LAUNCHES,
+                          "warp": warp.LAUNCHES, "occluder": occlusion.LAUNCHES}
+        if any(v == 0 for v in train_launches.values()):
+            fail(f"the training path did not launch every kernel: {train_launches}")
+        if state.step != 10 or resumed.step != 10 or warp.LAUNCHES - warp_before != 5:
+            fail(f"resume: steps {state.step}, {resumed.step}, "
+                 f"{warp.LAUNCHES - warp_before} steps after the restore (want 5)")
+        for h in (hist, hist2):
+            if [r["step"] for r in h] != list(range(1, 11)) or not all(
+                    np.isfinite([r["loss"], r["loss3d"], r["loss2d"], r["grad_norm"]]).all()
+                    for r in h):
+                fail(f"train history not finite or not steps 1..10: {h}")
+        d10 = abs(hist2[-1]["loss"] - hist[-1]["loss"]) / hist[-1]["loss"]
+        if d10 > 1e-2:
+            fail(f"the resumed run's loss at step 10 differs by {d10:.2e} (rel)")
+        print(f"[10 train] Config() R50@256 bf16, B={N3D}+{N2D}: 10 steps in {first_leg:.1f} s "
+              f"(loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, finite), checkpoint at 5, "
+              f"resumed 5 -> 10 (step-10 loss rel diff {d10:.1e}); launches {train_launches}")
+        del state, resumed
+        fixed, hist3 = run(os.path.join(tmp, "fixed"), {
+            "train.warmup_steps": "0", "data.cycle_batches": "1", "train.checkpoint_every": "20"},
+            iter(host[:1]), 20)
+        losses = [r["loss"] for r in hist3]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"the loss did not fall on one fixed batch: {losses}")
+        rate = float(np.median([r["crops_per_sec"] for r in hist3[2:]]))
+        print(f"[10 train] 20 steps on one batch, no warmup: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; host-clock rate {rate:.1f} crops/s  [{card}]")
+        del fixed
+    torch.cuda.empty_cache()
+
+    # 11 train parity: one float32 step on the card and on the CPU, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg = apply_overrides(Config(), {"model.compute_dtype": "float32", "model.proc_side": "128",
+                                      "train.warmup_steps": "0"})
+    pbatch = train_batch(rng, 3, 1, TILE, 128, len(bank_np))
+    res = []
+    for d in (dev, torch.device("cpu")):
+        st = create_train_state(pcfg, d, seed=SEED + 2)
+        step = make_train_step(pcfg, 0, occluder_bank=pack_occluder_bank_for(bank_np, d))
+        m = step(st, batch_to_device(pbatch, d))
+        res.append(({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in st.model.state_dict().items()}))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    (mg, sg), (mc, sc) = res
+    for k, tol in TRAIN_PARITY_RTOL.items():
+        if not abs(mg[k] - mc[k]) <= tol * abs(mc[k]):
+            fail(f"train parity {k}: card {mg[k]} CPU {mc[k]} (rtol {tol})")
+    stats = [k for k in sc if k.endswith((".mean", ".var"))]
+    stat_err = max(float((sg[k] - sc[k]).abs().max()) for k in stats)
+    diff = torch.cat([(sg[k] - sc[k]).abs().flatten() for k in sc if k not in stats])
+    lr = pcfg.train.base_lr
+    near = float((diff <= 0.1 * lr).float().mean())
+    if not (stat_err <= STATS_ATOL and float(diff.max()) <= 2 * lr + 1e-6 and near > 0.99):
+        fail(f"train parity: BN stats {stat_err:.2e} (tol {STATS_ATOL}), params max "
+             f"{float(diff.max()):.2e} (tol 2 lr), share within lr/10 {near:.4f} (want > 0.99)")
+    print(f"[11 t-parity] one float32 step R50@128 B=4, card vs CPU, TF32 off: rel diff "
+          + ", ".join(f"{k} {abs(mg[k] - mc[k]) / abs(mc[k]):.1e}" for k in TRAIN_PARITY_RTOL)
+          + f" (rtol {TRAIN_PARITY_RTOL}); BN stats {stat_err:.1e} (atol {STATS_ATOL}); "
+          f"params: median {float(diff.median()):.1e}, max {float(diff.max()):.1e} "
+          f"(<= 2 lr), share within lr/10 {near:.5f}")
+    del res, sg, sc
+
+    # 12 timings (informative; the card's name and power limit beside each)
+    occ_ms, occ_plain_ms = time_ms(lambda: occlusion.occlude_cuda(*k2_args)), time_ms(
+        lambda: occlusion.occlude_plain(*k2_args))
+    print(f"[12 t-time] K2 occluder paste B=96 {side}^2: kernel {occ_ms:.4f} ms, "
+          f"plain {occ_plain_ms:.4f} ms  [{card}]")
+    xb = torch.randn((96, 64, 128, 128), generator=gen, device=dev).to(torch.bfloat16)
+    xb = xb.contiguous(memory_format=torch.channels_last)
+    gb = torch.randn((96, 64, 64, 64), generator=gen, device=dev).to(torch.bfloat16)
+    bwd_ms, bwd_plain_ms = time_ms(lambda: pool.max_pool_bwd_cuda(xb, gb)), time_ms(
+        lambda: pool.max_pool_bwd_plain(xb, gb))
+    print(f"[12 t-time] K3-bwd [96,64,128,128] bf16: kernel {bwd_ms:.4f} ms, "
+          f"plain {bwd_plain_ms:.4f} ms  [{card}]")
+    del xb, gb
+    tcfg = Config()
+    st = create_train_state(tcfg, dev, seed=SEED)
+    step = make_train_step(tcfg, 0, occluder_bank=bank)
+    tb = batch_to_device(host[0], dev)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(st, tb), iters=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[12 t-time] train step Config() R50@256 bf16 B={N3D + N2D}: {step_ms:.2f} ms, "
+          f"{(N3D + N2D) / step_ms * 1e3:.1f} crops/s, peak {peak:.2f} GiB  [{card}]")
+    print(profile_breakdown(lambda: step(st, tb), steps=2))
+
     record = {"kernels": [
         {"name": "maxpool3x3s2_same", "route": "cuda",
          "source": "metro_pose3d_tpu_torch/csrc/maxpool_same.cu",
-         "replaces": "metro_pose3d_tpu/ops/pool_pallas.py:90", "launches": launches["pool"],
+         "replaces": "metro_pose3d_tpu/ops/pool_pallas.py:90",
+         "launches": launches["pool"] + train_launches["pool"],
          "max_abs_err": pool_err, "ms": pool_ms, "plain_ms": pool_plain_ms},
+        {"name": "maxpool3x3s2_same_bwd", "route": "cuda",
+         "source": "metro_pose3d_tpu_torch/csrc/maxpool_same_bwd.cu",
+         "replaces": "metro_pose3d_tpu/ops/pool_pallas.py:90",
+         "launches": train_launches["pool_bwd"],
+         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms},
         {"name": "warp_crop", "route": "cuda",
          "source": "metro_pose3d_tpu_torch/csrc/warp_crop.cu",
-         "replaces": "metro_pose3d_tpu/ops/warp_pallas.py:415", "launches": launches["warp"],
+         "replaces": "metro_pose3d_tpu/ops/warp_pallas.py:415",
+         "launches": launches["warp"] + train_launches["warp"],
          "max_abs_err": warp_max, "ms": warp_ms, "plain_ms": warp_plain_ms},
+        {"name": "occluder_paste", "route": "cuda",
+         "source": "metro_pose3d_tpu_torch/csrc/occluder_paste.cu",
+         "replaces": "metro_pose3d_tpu/ops/warp_pallas.py:507",
+         "launches": train_launches["occluder"],
+         "max_abs_err": occ_err, "ms": occ_ms, "plain_ms": occ_plain_ms},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

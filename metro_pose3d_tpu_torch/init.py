@@ -17,18 +17,19 @@ from metro_pose3d_tpu_torch.models.resnet import Conv
 _TRUNC_STD = 0.87962566103423978
 
 
-def init_metro_model(cfg: ModelConfig, seed: int, device="cpu") -> MetroModel:
-    """A `MetroModel` with weights drawn on the CPU from `seed`, moved to `device`."""
-    model = MetroModel(cfg)
+def init_metro_model(cfg: ModelConfig, seed: int, device="cpu", train: bool = False) -> MetroModel:
+    """A `MetroModel` with float32 weights drawn on the CPU from `seed`, moved
+    to `device`; built at the train phase and in train mode with `train=True`,
+    else at the test phase in eval mode."""
+    model = MetroModel(cfg, train=train)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, Conv):
-                w = torch.empty(module.weight.shape, dtype=torch.float32)
+                w = module.weight
                 std = math.sqrt(1.0 / w[0].numel()) / _TRUNC_STD  # fan_in = I*kh*kw
                 torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
-                module.weight.copy_(w)
                 if module.bias is not None:
                     module.bias.zero_()
     # BatchNorm modules are built as scale 1, bias 0, mean 0, var 1
-    return model.to(device).eval()
+    return model.to(device).train(train)

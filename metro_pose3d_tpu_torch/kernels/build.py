@@ -5,7 +5,9 @@ library with a plain C interface: pointers, shapes and the CUDA stream go in
 as `ctypes` arguments, and each entry point returns `cudaGetLastError()`.
 No PyTorch header is included, so nvcc takes seconds, not minutes.
 
-The library is built at first use, never at import time, into
+Each source compiles in its own nvcc process, all started together, and
+one nvcc call links the objects. The library is built at first use, never
+at import time, into
 `build/kernels/<hash>/` at the root of the checkout, keyed by a hash of the
 sources and the compiler flags, so an edited source rebuilds and an
 unchanged one is reused within a checkout.
@@ -30,7 +32,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # far-away rays back into the tile, and there the last ulp of a coordinate
 # moves the sample by many pixels.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 LIB_NAME = "libmetro_kernels.so"
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,6 +40,10 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # x, y, dtype, B, H, W, C, OH, OW, pad_top, pad_left, stream
     "metro_maxpool3x3s2_same": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    # x, g, dx, dtype, B, H, W, C, OH, OW, pad_top, pad_left, stream
+    "metro_maxpool3x3s2_same_bwd": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    # crops, bank, idx, affine, enabled, out, B, N, T, S, stream
+    "metro_occluder_paste": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     # src, params, src_idx, out, B, N, TH, TW, S, stream
     "metro_warp_crop": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }
@@ -82,19 +88,31 @@ def build() -> Path:
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    cu = [p for p in _sources() if p.suffix == ".cu"]
     t0 = time.perf_counter()
-    # build into a temporary name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    # build into a temporary directory and name, then rename: a concurrent
+    # or interrupted build never leaves a half-written library under the
+    # final name
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        objs = [work / f"{p.stem}.o" for p in cu]
+        jobs = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(p)]
+                for p, o in zip(cu, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in jobs]
+        outputs = [proc.communicate()[0] for proc in procs]  # waits for every one
+        tmp = work / LIB_NAME
+        for cmd, proc, out in zip(jobs, procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return lib_path
 

@@ -1,0 +1,61 @@
+"""Training losses (`metro_pose3d_tpu/models/losses.py`): root-relative 3D
+L1 plus 2D L1, masked per joint and per example for mixed 2D/3D batches.
+
+  * 3D: L1 of root-relative metric coordinates (mm), mean over xyz, under
+    `joint_validity * is_3d`, in metres (/1000). The root row is multiplied
+    by 0, as the reference does, so its zero error has no subgradient.
+  * 2D: L1 of crop-pixel coordinates / `proc_side` under
+    `joint_validity_2d`; 2D-only rows (`is_3d` = 0) contribute only this.
+  * With `train.absloss_weight > 0`: L1 of the absolute pose reconstructed
+    from the two heads and the crop intrinsics, against the camera-frame
+    ground truth, in metres.
+Each term is a validity-weighted mean, safe when the mask is empty.
+"""
+from __future__ import annotations
+
+import torch
+
+from metro_pose3d_tpu.config import Config
+from metro_pose3d_tpu_torch.models.metro import decode_metro
+from metro_pose3d_tpu_torch.ops.decode import root_relative
+from metro_pose3d_tpu_torch.ops.pose3d import reconstruct_absolute
+
+
+def _masked_mean(err, mask):
+    """Mean of `err` [B, J] under `mask` [B, J]; 0 when the mask is empty."""
+    return (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def compute_losses(logits3d, logits2d, batch, cfg: Config, root_index: int = 0):
+    """-> (total loss, {"loss3d", "loss2d", ["loss_abs",] "loss"}), all
+    float32 scalars. Batch tensors: coords3d_true [B,J,3] mm, coords2d_true
+    [B,J,2] px, joint_validity [B,J], joint_validity_2d [B,J], is_3d [B],
+    and intrinsics [B,3,3] when the absolute loss is on."""
+    mcfg = cfg.model
+    if mcfg.model_class != "metro":
+        raise NotImplementedError(f"model_class={mcfg.model_class!r} is not ported yet")
+    gt3d = batch["coords3d_true"].float()
+    gt2d = batch["coords2d_true"].float()
+    valid3d = batch["joint_validity"].float()
+    valid2d = batch["joint_validity_2d"].float()
+    is3d = batch["is_3d"].float()[:, None]
+    root_mask = torch.ones(gt3d.shape[1], device=gt3d.device)
+    root_mask[root_index] = 0.0
+
+    pose3d_mm, pose2d_px = decode_metro(logits3d, logits2d, mcfg)
+    rel_pred = root_relative(pose3d_mm, root_index)
+    rel_gt = root_relative(gt3d, root_index)
+    err3d = (rel_pred - rel_gt).abs().mean(-1) * root_mask  # [B, J] mm
+    loss3d = _masked_mean(err3d, valid3d * is3d) / 1000.0
+    err2d = (pose2d_px - gt2d).abs().mean(-1) / mcfg.proc_side
+    loss2d = _masked_mean(err2d, valid2d)
+
+    total = loss3d + cfg.train.loss_2d_weight * loss2d
+    parts = {"loss3d": loss3d, "loss2d": loss2d}
+    if cfg.train.absloss_weight > 0:
+        abs_pred = reconstruct_absolute(rel_pred, pose2d_px, batch["intrinsics"].float())
+        err_abs = (abs_pred - gt3d).abs().mean(-1)
+        parts["loss_abs"] = _masked_mean(err_abs, valid3d * is3d) / 1000.0
+        total = total + cfg.train.absloss_weight * parts["loss_abs"]
+    parts["loss"] = total
+    return total, parts

@@ -19,11 +19,14 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class MetroModel(nn.Module):
-    """Inference model; the test-phase output stride is resolved at build time."""
+    """The model at one phase's output stride, resolved at build time
+    (`ModelConfig.at_phase`): the test stride by default, the train stride
+    with `train=True`. The parameter tree is the same at either stride.
+    Batch norm follows `.train()` / `.eval()`."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, train: bool = False):
         super().__init__()
-        cfg = cfg.at_phase(train=False)
+        cfg = cfg.at_phase(train=train)
         if cfg.model_class != "metro":
             raise NotImplementedError(f"model_class={cfg.model_class!r} is not ported yet")
         if cfg.compute_dtype not in DTYPES:

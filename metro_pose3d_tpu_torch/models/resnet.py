@@ -1,8 +1,10 @@
-"""ResNet v2 (pre-activation) backbone with a dilated final stage, for inference.
+"""ResNet v2 (pre-activation) backbone with a dilated final stage.
 
-Port of `metro_pose3d_tpu/models/resnet.py` for the configurations the
-serving path runs: bottleneck variants (resnet50/101/152, tiny),
-`conv_padding="same"`, `preactivation=True`, either `stride_position`.
+Port of `metro_pose3d_tpu/models/resnet.py` for bottleneck variants
+(resnet50/101/152, tiny), `conv_padding="same"`, `preactivation=True`,
+either `stride_position`. Parameters are float32 and cast to the compute
+dtype inside each op, as flax does with `param_dtype=float32`; batch norm
+follows `module.train()` / `.eval()`.
 Module and parameter names follow the flax tree (`conv_stem`,
 `stage{s}_block{i}.{bn_pre,proj,conv1..3,bn1,bn2}`, `bn_final`), so a flax
 checkpoint converts by name (`metro_pose3d_tpu_torch/convert.py`).
@@ -39,32 +41,47 @@ def _same_pads(size: int, k: int, stride: int, dilation: int):
 
 
 class Conv(nn.Module):
-    """Square convolution with XLA SAME padding (flax `nn.Conv` semantics)."""
+    """Square convolution with XLA SAME padding (flax `nn.Conv` semantics):
+    float32 `weight` and `bias`, cast to the compute dtype in `forward`."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
                  bias: bool = False, dtype=torch.float32):
         super().__init__()
-        self.k, self.stride, self.dilation = k, stride, dilation
-        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype)) if bias else None
+        self.k, self.stride, self.dilation, self.dtype = k, stride, dilation, dtype
+        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
+        weight = self.weight.to(self.dtype)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
         top, bottom = _same_pads(x.shape[2], self.k, self.stride, self.dilation)
         left, right = _same_pads(x.shape[3], self.k, self.stride, self.dilation)
         if (top, left) == (bottom, right):
-            return F.conv2d(x, self.weight, self.bias, self.stride, (top, left), self.dilation)
+            return F.conv2d(x, weight, bias, self.stride, (top, left), self.dilation)
         x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation)
+        return F.conv2d(x, weight, bias, self.stride, 0, self.dilation)
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm with flax's parameter names and arithmetic:
-    ((x - mean) * (rsqrt(var + eps) * scale) + bias) in float32, then cast
-    to the compute dtype."""
+    """Batch norm with flax's parameter names and arithmetic, in float32,
+    cast to the compute dtype at the end.
 
-    def __init__(self, c: int, eps: float, dtype=torch.float32):
+    eval(): the running statistics, (x - mean) * (rsqrt(var + eps) * scale)
+    + bias (flax `nn.BatchNorm`).
+    train(): the batch moments as flax computes them, mean(x) and the "fast"
+    variance max(mean(x^2) - mean^2, 0), with gradients through both; the
+    running statistics become m * ra + (1 - m) * batch with m = momentum and
+    the biased variance (`F.batch_norm` would take 1 - m and the unbiased
+    variance). With `group_size > 0` (ghost BN, `GhostBatchNorm` in the JAX
+    package) each group of examples normalises with its own moments, in that
+    module's order and without the clip, and the running statistics get the
+    full-batch moments composed from the groups.
+    """
+
+    def __init__(self, c: int, eps: float, momentum: float = 0.99, group_size: int = 0,
+                 dtype=torch.float32):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.momentum, self.group_size, self.dtype = eps, momentum, group_size, dtype
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
@@ -72,27 +89,59 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        y = (x.float() - self.mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        xf = x.float()
+        if not self.training:
+            mul = torch.rsqrt(self.var + self.eps) * self.scale
+            y = (xf - self.mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+            return y.to(self.dtype)
+        if self.group_size > 0:
+            y, mean, var = self._ghost(xf)
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.maximum((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                                torch.zeros_like(mean))
+            mul = torch.rsqrt(var + self.eps) * self.scale
+            y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
         return y.to(self.dtype)
+
+    def _ghost(self, xf):
+        """-> (normalised x, full-batch mean, full-batch variance)."""
+        b = xf.shape[0]
+        gs = min(self.group_size, b)
+        if b % gs:
+            raise ValueError(f"batch {b} not divisible by bn group size {gs}")
+        xg = xf.reshape(b // gs, gs, *xf.shape[1:])
+        gmean = xg.mean(dim=(1, 3, 4))  # [G, C]
+        gmean2 = (xg * xg).mean(dim=(1, 3, 4))
+        gvar = gmean2 - gmean * gmean
+        mean = gmean.repeat_interleave(gs, dim=0)[:, :, None, None]
+        var = gvar.repeat_interleave(gs, dim=0)[:, :, None, None]
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.scale.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        full_mean = gmean.mean(dim=0)
+        return y, full_mean, gmean2.mean(dim=0) - full_mean * full_mean
 
 
 class Bottleneck(nn.Module):
     """Pre-activation bottleneck unit (ResNet v2)."""
 
     def __init__(self, cin: int, features: int, strides: int, dilation: int,
-                 eps: float, dtype):
+                 bn: dict, dtype):
         super().__init__()
         out = features * 4
         self.strides = strides
         self.change = cin != out
-        self.bn_pre = BatchNorm(cin, eps, dtype)
+        self.bn_pre = BatchNorm(cin, **bn, dtype=dtype)
         if self.change:
             self.proj = Conv(cin, out, 1, strides, dtype=dtype)
         self.conv1 = Conv(cin, features, 1, dtype=dtype)
-        self.bn1 = BatchNorm(features, eps, dtype)
+        self.bn1 = BatchNorm(features, **bn, dtype=dtype)
         self.conv2 = Conv(features, features, 3, strides, dilation, dtype=dtype)
-        self.bn2 = BatchNorm(features, eps, dtype)
+        self.bn2 = BatchNorm(features, **bn, dtype=dtype)
         self.conv3 = Conv(features, out, 1, dtype=dtype)
 
     def forward(self, x):
@@ -133,7 +182,8 @@ class ResNet(nn.Module):
         _check_supported(cfg)
         depths = RESNET_DEPTHS[cfg.backbone]
         base = BASE_WIDTHS.get(cfg.backbone, 64)
-        eps = cfg.bn_epsilon
+        bn = {"eps": cfg.bn_epsilon, "momentum": cfg.bn_momentum,
+              "group_size": cfg.bn_group_size}
         self.dtype = dtype
         self.conv_stem = Conv(3, base, 7, 2, dtype=dtype)
 
@@ -164,11 +214,11 @@ class ResNet(nn.Module):
             for i in range(n_blocks):
                 name = f"stage{stage + 1}_block{i + 1}"
                 block = Bottleneck(cin, features, stage_stride if i == strided_unit else 1,
-                                   stage_dil, eps, dtype)
+                                   stage_dil, bn, dtype)
                 self.add_module(name, block)
                 self.blocks.append(name)
                 cin = features * 4
-        self.bn_final = BatchNorm(cin, eps, dtype)
+        self.bn_final = BatchNorm(cin, **bn, dtype=dtype)
         self.out_channels = cin
 
     def forward(self, x):

@@ -1,19 +1,56 @@
-"""The on-device half of the input pipeline, inference leg
-(`metro_pose3d_tpu/pipeline/device.py::device_augment(train=False)`):
-uint8 source tiles + warp parameters -> normalized float crops."""
+"""The on-device half of the input pipeline
+(`metro_pose3d_tpu/pipeline/device.py::device_augment`): uint8 source tiles
+and per-example parameters in, normalized float crops out.
+
+Train leg, in the reference's order: background composite (when the batch
+carries "source_mask") -> K1 warp -> x1/255 -> K2 occluder paste -> colour
+jitter -> normalize. The inference leg is the warp and normalize only.
+"""
 from __future__ import annotations
 
-from metro_pose3d_tpu_torch.ops.color import normalize
+import numpy as np
+import torch
+
+from metro_pose3d_tpu_torch.ops.color import color_jitter, composite_background, normalize
+from metro_pose3d_tpu_torch.ops.occlusion import occlude_with_bank, pack_occluder_bank
 from metro_pose3d_tpu_torch.ops.warp import warp_images
 
 
-def device_augment(batch: dict, proc_side: int, train: bool = False):
+def pack_occluder_bank_for(bank_rgba01, device) -> torch.Tensor:
+    """Upload the [N,T,T,4] float RGBA occluder bank once, as the uint8 RGBA
+    bank the occluder paste samples."""
+    return pack_occluder_bank(bank_rgba01).to(device)
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """Host batch (numpy arrays in the `example_spec` layout) -> tensors on `device`."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def device_augment(batch: dict, proc_side: int, train: bool = False, occluder_bank=None,
+                   background_bank=None):
     """{"source" [B,T,T,3] uint8, "warp_h" [B,3,3], "warp_k" [B,4],
-    "warp_dist" [B,5]} -> [B,S,S,3] float32 crops in [-1, 1]."""
+    "warp_dist" [B,5], and for training "occ_params" [B,2] (enabled, bank
+    index), "occ_affine" [B,2,3], "color_params" [B,4] (brightness,
+    contrast, saturation, hue)} -> [B,S,S,3] float32 crops in [-1, 1].
+
+    `occluder_bank`: uint8 [N,T2,T2,4] from `pack_occluder_bank_for`.
+    `background_bank`: uint8 [N,T,T,3], used when the batch carries
+    "source_mask" and "bg_params".
+    """
+    source = batch["source"]
+    if train and background_bank is not None and "source_mask" in batch:
+        source = composite_background(source, batch["source_mask"], background_bank,
+                                      batch["bg_params"])
+    crops = warp_images(source, batch["warp_h"], batch["warp_k"], batch["warp_dist"],
+                        proc_side)
+    crops = crops * (1.0 / 255.0)
+    if train and occluder_bank is not None:
+        occ = batch["occ_params"]
+        crops = occlude_with_bank(crops, occluder_bank, occ[:, 1].to(torch.int32),
+                                  batch["occ_affine"], occ[:, 0])
     if train:
-        raise NotImplementedError(
-            "the train leg of device_augment (occluders, color jitter, background "
-            "replacement) is not ported yet")
-    crops = warp_images(batch["source"], batch["warp_h"], batch["warp_k"],
-                        batch["warp_dist"], proc_side)
-    return normalize(crops * (1.0 / 255.0))
+        cp = batch["color_params"]
+        crops = color_jitter(crops, cp[:, 0], cp[:, 1], cp[:, 2], cp[:, 3])
+    return normalize(crops)

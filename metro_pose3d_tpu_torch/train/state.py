@@ -1,0 +1,58 @@
+"""Training state (`metro_pose3d_tpu/train/state.py`): the step count, the
+model (float32 parameters and BN running statistics) and the Adam state.
+
+`state_dict()` keys the Adam state by parameter name, as the model's own
+state dict is keyed, so a checkpoint and a state converted from the JAX
+package (`convert.train_state_from_flax`) load the same way.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from metro_pose3d_tpu.config import Config
+from metro_pose3d_tpu_torch.init import init_metro_model
+from metro_pose3d_tpu_torch.models.metro import MetroModel
+from metro_pose3d_tpu_torch.train.loop import make_optimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: MetroModel
+    optimizer: torch.optim.Adam
+
+    def state_dict(self) -> dict:
+        """{"step": int, "model": state dict, "adam": {param name: {"step",
+        "exp_avg", "exp_avg_sq"}}}, tensors detached on their devices."""
+        names = [name for name, _ in self.model.named_parameters()]
+        opt = self.optimizer.state_dict()["state"]
+        return {"step": self.step, "model": self.model.state_dict(),
+                "adam": {names[i]: dict(s) for i, s in opt.items()}}
+
+    def load_state_dict(self, d: dict) -> None:
+        """Load `state_dict()`'s layout; every name must match."""
+        self.model.load_state_dict(d["model"], strict=True)
+        index = {name: i for i, (name, _) in enumerate(self.model.named_parameters())}
+        unknown = set(d["adam"]) - set(index)
+        if unknown:
+            raise KeyError(f"Adam state for unknown parameters: {sorted(unknown)[:5]}")
+        opt = self.optimizer.state_dict()
+        opt["state"] = {index[name]: dict(s) for name, s in d["adam"].items()}
+        # casts and moves each tensor as this optimizer keeps it
+        self.optimizer.load_state_dict(opt)
+        self.step = int(d["step"])
+
+
+def create_train_state(cfg: Config, device="cpu", seed: int | None = None) -> TrainState:
+    """Seeded random init (`init.py`) of the model at the train phase, in
+    train mode, on `device`, with a fresh Adam state. `seed` defaults to
+    `train.seed`."""
+    if cfg.train.backbone_init:
+        raise NotImplementedError(
+            "train.backbone_init needs the ImageNet backbone converter, which is not "
+            "ported yet")
+    model = init_metro_model(cfg.model, cfg.train.seed if seed is None else seed, device,
+                             train=True)
+    return TrainState(step=0, model=model, optimizer=make_optimizer(cfg, model))

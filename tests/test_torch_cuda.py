@@ -104,3 +104,112 @@ def test_tiny_serving_on_card_matches_cpu(cuda):
     for key in want:
         # float32 with TF32 off: other summation orders only
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 128, 128), (3, 5, 15, 13), (1, 8, 9, 16)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_pool_backward_kernel_matches_plain(cuda, shape, dtype, ties):
+    x = torch.randn(shape, device=cuda)
+    if ties:
+        x = torch.round(x * 4) / 4  # neighbours often equal: the chain splits ties
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    oh, ow = (shape[2] + 1) // 2, (shape[3] + 1) // 2
+    g = torch.randn(shape[0], shape[1], oh, ow, device=cuda).to(dtype)
+    xr = x.clone().requires_grad_(True)
+    before = pool.BWD_LAUNCHES
+    pool.stem_max_pool(xr).backward(g)
+    assert pool.BWD_LAUNCHES == before + 1
+    assert xr.grad.is_contiguous(memory_format=torch.channels_last)
+    # float32 sums of the same power-of-two weights, once rounded to dtype
+    want = pool.max_pool_bwd_plain(x.float(), g.float())
+    err = (xr.grad.float() - want).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-6
+    else:  # within one bf16 ulp of the float32 sum
+        assert bool((err <= want.abs() * 2 ** -7).all())
+
+
+def test_occluder_kernel_matches_plain(cuda):
+    from metro_pose3d_tpu_torch.ops import occlusion
+    from metro_pose3d_tpu_torch.pipeline.occluders import make_procedural_occluders
+
+    rng = np.random.RandomState(3)
+    b, side = 12, 64
+    bank = occlusion.pack_occluder_bank(make_procedural_occluders(8, 32)).to(cuda)
+    crops = torch.from_numpy(rng.uniform(0, 1, (b, side, side, 3)).astype(np.float32)).to(cuda)
+    ang = rng.uniform(-np.pi, np.pi, b)
+    ang[:4] = [np.pi / 2, -np.pi / 2, np.pi, -np.pi]
+    sc = rng.uniform(1.4, 5, b)
+    aff = np.zeros((b, 2, 3), np.float32)
+    aff[:, 0, 0], aff[:, 0, 1] = sc * np.cos(ang), -sc * np.sin(ang)
+    aff[:, 1, 0], aff[:, 1, 1] = sc * np.sin(ang), sc * np.cos(ang)
+    aff[:, :, 2] = 16 - np.einsum("bij,bj->bi", aff[:, :, :2], rng.uniform(-10, 74, (b, 2)))
+    idx = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, -1, 8, 3, 2], dtype=torch.int32, device=cuda)
+    en = torch.tensor([1.0] * 10 + [0.0, 1.0], device=cuda)
+    args = (crops, bank, idx, torch.from_numpy(aff).to(cuda), en)
+    before = occlusion.LAUNCHES
+    got = occlusion.occlude_with_bank(*args)
+    assert occlusion.LAUNCHES == before + 1
+    want = occlusion.occlude_plain(*args)
+    # the plain version's order of operations, no FMA contraction
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got[8:11], crops[8:11])  # out-of-range index, disabled
+
+
+def test_tiny_train_step_on_card_matches_cpu(cuda):
+    from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
+    from metro_pose3d_tpu_torch.pipeline.occluders import make_procedural_occluders
+    from metro_pose3d_tpu_torch.train.loop import make_train_step
+    from metro_pose3d_tpu_torch.train.state import create_train_state
+
+    cfg = apply_overrides(Config(), {"model.backbone": "tiny", "model.proc_side": "64",
+                                     "model.depth": "4", "model.compute_dtype": "float32",
+                                     "train.warmup_steps": "0"})
+    rng = np.random.RandomState(4)
+    b = 8
+    h, k, _ = _params(rng, b, 128, 64)
+    ang = rng.uniform(-np.pi, np.pi, b)
+    aff = np.zeros((b, 2, 3), np.float32)
+    aff[:, 0, 0], aff[:, 0, 1] = 3 * np.cos(ang), -3 * np.sin(ang)
+    aff[:, 1, 0], aff[:, 1, 1] = 3 * np.sin(ang), 3 * np.cos(ang)
+    aff[:, :, 2] = 48 - np.einsum("bij,bj->bi", aff[:, :, :2], rng.uniform(10, 54, (b, 2)))
+    batch = {
+        "source": rng.randint(0, 256, (b, 128, 128, 3)).astype(np.uint8),
+        "warp_h": h.numpy(), "warp_k": k.numpy(), "warp_dist": np.zeros((b, 5), np.float32),
+        "coords3d_true": rng.uniform(-500, 500, (b, 17, 3)).astype(np.float32)
+        + np.array([0, 0, 4000], np.float32),
+        "coords2d_true": rng.uniform(0, 64, (b, 17, 2)).astype(np.float32),
+        "joint_validity": np.ones((b, 17), np.float32),
+        "joint_validity_2d": np.ones((b, 17), np.float32),
+        "is_3d": np.ones(b, np.float32),
+        "intrinsics": np.tile(np.array([[900, 0, 31.5], [0, 900, 31.5], [0, 0, 1]],
+                                       np.float32), (b, 1, 1)),
+        "color_params": np.stack([rng.uniform(-0.1, 0.1, b), rng.uniform(0.8, 1.2, b),
+                                  rng.uniform(0.8, 1.2, b), rng.uniform(-0.3, 0.3, b)],
+                                 1).astype(np.float32),
+        "occ_params": np.stack([np.ones(b), np.arange(b) % 8], 1).astype(np.float32),
+        "occ_affine": aff,
+    }
+    occ = make_procedural_occluders(8, 96)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            state = create_train_state(cfg, dev, seed=1)
+            step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(occ, dev))
+            metrics = step(state, batch_to_device(batch, dev))
+            out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
+                             {k: v.cpu() for k, v in state.model.state_dict().items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    (m_cpu, sd_cpu), (m_gpu, sd_gpu) = out["cpu"], out[str(cuda)]
+    for key in m_cpu:
+        # float32 with TF32 off: other summation orders only
+        assert m_gpu[key] == pytest.approx(m_cpu[key], rel=1e-3), key
+    lr = cfg.train.base_lr
+    for name in sd_cpu:
+        # BN statistics to roundoff; a weight whose gradient is ~0 may take
+        # Adam's step of lr with the other sign
+        atol = 1e-4 if name.endswith((".mean", ".var")) else 2 * lr + 1e-6
+        torch.testing.assert_close(sd_gpu[name], sd_cpu[name], rtol=0, atol=atol)

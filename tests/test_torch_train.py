@@ -1,0 +1,366 @@
+"""The port's training path against the JAX package on the CPU.
+
+Train steps from one state: a JAX `create_train_state` converted with
+`convert.train_state_from_flax`, on batches from the JAX host loader over
+`SyntheticDataset`, through both packages' train steps; the metrics, the
+per-tensor gradients, the BN statistics and the parameters must agree.
+Also: float32 master parameters under bf16, checkpoints, and `train()`
+with a resume against an uninterrupted run.
+"""
+import copy
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from metro_pose3d_tpu.config import Config, apply_overrides
+from metro_pose3d_tpu.data.synthetic import SyntheticDataset
+from metro_pose3d_tpu.models.losses import compute_losses as jax_compute_losses
+from metro_pose3d_tpu.models.metro import MetroModel as FlaxMetro
+from metro_pose3d_tpu.pipeline.device import device_augment as jax_device_augment
+from metro_pose3d_tpu.pipeline.loader import prepare_one, stack_examples
+from metro_pose3d_tpu.pipeline.occluders import make_procedural_occluders
+from metro_pose3d_tpu.train import loop as jloop
+from metro_pose3d_tpu.train.state import create_train_state as jax_create_train_state
+from metro_pose3d_tpu_torch.convert import state_dict_from_flax, train_state_from_flax
+from metro_pose3d_tpu_torch.models.losses import compute_losses
+from metro_pose3d_tpu_torch.models.metro import MetroModel
+from metro_pose3d_tpu_torch.pipeline.device import (
+    batch_to_device, device_augment, pack_occluder_bank_for,
+)
+from metro_pose3d_tpu_torch.train import checkpoint as ckpt_mod
+from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
+from metro_pose3d_tpu_torch.train.loop import make_train_step
+from metro_pose3d_tpu_torch.train.state import create_train_state
+from metro_pose3d_tpu_torch.train.trainer import train
+
+TINY = {
+    "model.backbone": "tiny",
+    "model.proc_side": "64",
+    "model.depth": "4",
+    "model.compute_dtype": "float32",
+    "train.batch_size": "8",
+    "train.batch_size_2d": "0",
+    "train.warmup_steps": "0",
+    "train.validate_every": "0",
+    "data.source_side": "128",
+}
+N_OCC = 64
+
+
+def _cfg(**over):
+    return apply_overrides(Config(), {**TINY, **over})
+
+
+@pytest.fixture(scope="module")
+def host_batches():
+    """Eight host batches of 8 from the JAX loader's example prep."""
+    ds = SyntheticDataset(n_train=64, n_test=8, imshape=(256, 256))
+    cfg = _cfg()
+    out = []
+    for k in range(8):
+        prepared = [prepare_one(ds.train_example(8 * k + i), ds.joint_info, 64, 128, cfg.aug,
+                                (0, 0, 8 * k + i), N_OCC) for i in range(8)]
+        out.append(stack_examples(prepared))
+    return out
+
+
+@pytest.fixture(scope="module")
+def bank():
+    return make_procedural_occluders(N_OCC, 96)
+
+
+def _mixed(batch):
+    """Rows 5..7 as 2D-only examples: no 3D supervision."""
+    b = {k: v.copy() for k, v in batch.items()}
+    b["is_3d"][5:] = 0.0
+    b["joint_validity"][5:] = 0.0
+    return b
+
+
+def test_train_augment_matches_jax(host_batches, bank):
+    batch = dict(host_batches[0])
+    rng = np.random.RandomState(9)
+    batch["source_mask"] = rng.randint(0, 256, (8, 128, 128)).astype(np.uint8)
+    batch["bg_params"] = np.stack([rng.randint(0, 2, 8), rng.randint(0, 3, 8)],
+                                  1).astype(np.float32)
+    backgrounds = rng.randint(0, 256, (3, 128, 128, 3)).astype(np.uint8)
+    want = np.asarray(jax.jit(lambda b, o, g: jax_device_augment(
+        b, 64, o, train=True, background_bank=g))(
+        {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(bank),
+        jnp.asarray(backgrounds)))
+    got = device_augment(batch_to_device(batch, "cpu"), 64, train=True,
+                         occluder_bank=pack_occluder_bank_for(bank, "cpu"),
+                         background_bank=torch.from_numpy(backgrounds)).numpy()
+    assert np.any(batch["occ_params"][:, 0] == 1) and np.any(batch["color_params"][:, 0] != 0)
+    assert np.any(batch["bg_params"][:, 0] == 1)
+    # [-1, 1] units: the warp's 1e-2 in [0, 255] (test_torch_kernels_plain)
+    # and the occluder placement's coordinate ulps
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+
+
+# name: (overrides, mixed 2D/3D batch, first batch, steps). The first
+# batch of each float32 case keeps every ReLU input at least 2e-6 from 0
+# (see `_grads_on_same_crops`).
+STEP_CASES = {
+    "f32_ghost_bn_absloss_mixed": (
+        {"model.bn_group_size": "4", "train.absloss_weight": "0.1"}, True, 5, 3),
+    "f32": ({}, False, 0, 1),
+    "bf16": ({"model.compute_dtype": "bfloat16"}, False, 0, 1),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_start():
+    """The JAX package's initial train state, as numpy. Every step case has
+    the same parameter tree and optimizer (the compute dtype and the BN
+    grouping change neither), so one init serves them all."""
+    cfg = _cfg()
+    tx = jloop.make_optimizer(cfg)
+    state = jax.jit(lambda key: jax_create_train_state(cfg, tx, key))(jax.random.PRNGKey(3))
+    return jax.device_get(state)
+
+
+def _grads_on_same_crops(cfg, jstate, port_model, batch, bank):
+    """Per-tensor gradients of both packages' model + losses on the JAX
+    package's augmented crops: the model's backward on equal inputs."""
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    crops = jax_device_augment(jb, cfg.model.proc_side, jnp.asarray(bank), train=True)
+    model = FlaxMetro(cfg.model.at_phase(train=True))
+
+    def loss_fn(params):
+        (l3d, l2d), _ = model.apply({"params": params, "batch_stats": jstate.batch_stats},
+                                    crops, train=True, mutable=["batch_stats"])
+        return jax_compute_losses(l3d, l2d, jb, cfg, 0)[0]
+
+    want = state_dict_from_flax({"params": jax.jit(jax.grad(loss_fn))(jstate.params)})
+    m = copy.deepcopy(port_model).train()  # its BN statistics stay untouched
+    # A ReLU input within the two forwards' roundoff (~1e-6) of 0 may take
+    # the other side in the other package and move its gradient entry; the
+    # comparison holds to roundoff only on a batch that has none.
+    margins = []
+    for name, mod in m.named_modules():
+        if name.rsplit(".", 1)[-1] in ("bn_pre", "bn1", "bn2", "bn_final"):
+            mod.register_forward_hook(
+                lambda mod, inp, out: margins.append(float(out.detach().abs().min())))
+    l3d, l2d = m(torch.from_numpy(np.array(crops)))
+    assert min(margins) >= 2e-6, f"a ReLU input {min(margins)} from 0: pick another batch"
+    compute_losses(l3d, l2d, batch_to_device(batch, "cpu"), cfg, 0)[0].backward()
+    return {n: p.grad for n, p in m.named_parameters()}, want
+
+
+def _flat(named: dict) -> np.ndarray:
+    return np.concatenate([np.asarray(named[k], np.float32).ravel() for k in sorted(named)])
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_train_steps_match_jax(case, host_batches, bank, jax_start):
+    over, mixed, first, n_steps = STEP_CASES[case]
+    cfg = _cfg(**over)
+    f32 = cfg.model.compute_dtype == "float32"
+    batches = [_mixed(b) if mixed else b for b in host_batches[first:first + n_steps]]
+    tx = jloop.make_optimizer(cfg)
+    jstate = jax.tree_util.tree_map(jnp.array, jax_start)  # the step donates its input
+    port = create_train_state(cfg, "cpu")
+    port.load_state_dict(train_state_from_flax(jax_start))
+    assert all(p.dtype == torch.float32 for p in port.model.parameters())
+    before = {k: v.clone() for k, v in port.model.state_dict().items()}
+    lr = cfg.train.base_lr
+
+    if f32:
+        got, want = _grads_on_same_crops(cfg, jstate, port.model, batches[0], bank)
+        for name, w in want.items():
+            # float32 roundoff through ~20 layers, per tensor against its norm
+            # (head2d.bias has a zero gradient: the softmax ignores a shift)
+            err = float((got[name] - w).norm())
+            assert err <= 1e-4 * float(w.norm()) + 1e-7, (name, err, float(w.norm()))
+
+    jstep = jloop.make_train_step(cfg, tx, occluder_bank=jnp.asarray(bank))
+    step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(bank, "cpu"))
+    for i, batch in enumerate(batches):
+        jstate, jm = jstep(jstate, batch)
+        pm = step(port, batch_to_device(batch, "cpu"))
+        assert set(pm) == set(jm)
+        for key in jm:
+            # Through the whole step the crops differ by the warp's and the
+            # occluder's roundoff (~1e-5), which can flip a ReLU whose input
+            # is that close to 0 and move one gradient entry: grad_norm gets
+            # 1e-2. bf16: the frameworks round at other places.
+            rtol = (1e-2 if key == "grad_norm" else 2e-4) if f32 else 3e-2
+            assert float(pm[key]) == pytest.approx(float(jm[key]), rel=rtol), (i, key)
+    assert port.step == int(jstate.step) == n_steps
+
+    got = port.model.state_dict()
+    want = state_dict_from_flax(jax.device_get({"params": jstate.params,
+                                                "batch_stats": jstate.batch_stats}))
+    assert set(got) == set(want)
+    stats = [k for k in want if k.endswith((".mean", ".var"))]
+    params = [k for k in want if k not in stats]
+    for k in stats:
+        # batch moments of the same forward, blended in with m = 0.99
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), atol=1e-4, rtol=1e-3,
+                                   err_msg=k)
+    assert all(got[k].dtype == torch.float32 for k in got)
+    g, w = _flat({k: got[k] for k in params}), _flat({k: want[k] for k in params})
+    moved = np.abs(g - _flat({k: before[k] for k in params}))
+    # Adam moves each element by about lr per step. An element whose
+    # gradient is near 0 may take the other sign in the other package, so
+    # the bound is 2 lr per step; most elements agree to a tenth of lr.
+    diff = np.abs(g - w)
+    assert diff.max() <= 2 * lr * n_steps + 1e-6
+    assert (diff <= 0.1 * lr).mean() > (0.99 if f32 else 0.9)
+    assert 0.5 * lr < np.median(moved) <= lr * n_steps * 1.01
+    if not f32:
+        # the update is below bf16's resolution at these weights: bf16
+        # master weights would have lost most of it
+        p0 = torch.from_numpy(_flat({k: before[k] for k in params}))
+        lost = (p0.bfloat16() == torch.from_numpy(g).bfloat16()).float().mean()
+        assert float(lost) > 0.5
+
+
+def test_bf16_model_keeps_float32_parameters_like_flax():
+    cfg = _cfg(**{"model.compute_dtype": "bfloat16"})
+    variables = jax.eval_shape(lambda: FlaxMetro(cfg.model).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), train=True))
+    leaves = jax.tree_util.tree_leaves(variables)
+    assert leaves and all(leaf.dtype == jnp.float32 for leaf in leaves)
+    model = MetroModel(cfg.model, train=True)
+    assert model.dtype == torch.bfloat16
+    sd = model.state_dict()
+    assert sd and all(v.dtype == torch.float32 for v in sd.values())
+    assert len(list(model.parameters())) == len(jax.tree_util.tree_leaves(variables["params"]))
+    x = torch.zeros(2, 64, 64, 3)
+    l3d, l2d = model(x)  # computes in bf16, returns float32
+    assert l3d.dtype == l2d.dtype == torch.float32
+
+
+def _state_equal(a: dict, b: dict) -> bool:
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        if isinstance(a[k], dict):
+            if not _state_equal(a[k], b[k]):
+                return False
+        elif isinstance(a[k], torch.Tensor):
+            if not torch.equal(a[k], b[k]):
+                return False
+        elif a[k] != b[k]:
+            return False
+    return True
+
+
+def _trained_state(host_batches, bank, steps=2):
+    cfg = _cfg()
+    state = create_train_state(cfg, "cpu", seed=1)
+    step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(bank, "cpu"))
+    for b in host_batches[:steps]:
+        step(state, batch_to_device(b, "cpu"))
+    return cfg, state
+
+
+def test_checkpoint_round_trip_keep_k_and_atomic_write(tmp_path, host_batches, bank,
+                                                       monkeypatch):
+    cfg, state = _trained_state(host_batches, bank)
+    ck = Checkpointer(str(tmp_path), keep=3)
+    assert ck.latest_step() is None
+    fresh = create_train_state(cfg, "cpu", seed=2)
+    assert ck.restore(fresh) == (fresh, 0)
+    for s in range(1, 6):
+        ck.save(s, state)
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == ["3", "4", "5"]
+    assert ck.latest_step() == 5
+
+    restored, step = ck.restore(create_train_state(cfg, "cpu", seed=2))
+    assert step == 5 and restored.step == state.step
+    assert _state_equal(restored.state_dict(), state.state_dict())
+
+    def broken_save(obj, path):
+        with open(path, "wb") as f:
+            f.write(b"partial")
+        raise OSError("disk full")
+
+    monkeypatch.setattr(ckpt_mod.torch, "save", broken_save)
+    with pytest.raises(OSError):
+        ck.save(6, state)
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == ["3", "4", "5"]  # nothing partial
+    assert ck.latest_step() == 5
+
+
+def test_checkpoint_best_slot(tmp_path, host_batches, bank):
+    cfg, state = _trained_state(host_batches, bank, steps=1)
+    ck = Checkpointer(str(tmp_path), keep=2)
+    ck.save(1, state)
+    other = create_train_state(cfg, "cpu", seed=5)
+    restored, step = ck.restore_best(other)  # no best yet: the latest
+    assert step == 1
+    assert ck.save_if_best(10, state, 5.0)
+    assert not ck.save_if_best(11, other, 6.0)
+    assert ck.save_if_best(12, state, 4.0)
+    for s in (13, 14, 15):
+        ck.save(s, other)  # the rolling window cannot evict the best
+    assert os.listdir(tmp_path / "best") and sorted(
+        n for n in os.listdir(tmp_path / "best") if n.isdigit()) == ["12"]
+    ck2 = Checkpointer(str(tmp_path), keep=2)
+    assert ck2.best_metric() == 4.0
+    restored, step = ck2.restore_best(create_train_state(cfg, "cpu", seed=5))
+    assert step == 12
+    assert _state_equal(restored.model.state_dict(), state.model.state_dict())
+
+
+@pytest.mark.parametrize("cycle", [0, 3])
+def test_train_resume_equals_uninterrupted_run(tmp_path, host_batches, bank, cycle):
+    over = {"train.num_steps": "8", "train.log_every": "2", "train.checkpoint_every": "4",
+            "data.cycle_batches": str(cycle)}
+    cfg_a = _cfg(**over, **{"train.logdir": str(tmp_path / "a")})
+    cfg_b = _cfg(**over, **{"train.logdir": str(tmp_path / "b")})
+    whole = train(cfg_a, iter(host_batches), occluder_bank=bank, max_steps=8, device="cpu")
+    first = train(cfg_b, iter(host_batches), occluder_bank=bank, max_steps=4, device="cpu")
+    assert first.step == 4
+    resumed = train(cfg_b, iter(host_batches), occluder_bank=bank, max_steps=8, device="cpu")
+    assert resumed.step == whole.step == 8
+    # the same batches in the same order, restored exactly: equal on the CPU
+    assert _state_equal(resumed.state_dict(), whole.state_dict())
+    for run in ("a", "b"):
+        with open(tmp_path / run / "history.json") as f:
+            hist = json.load(f)
+        assert [row["step"] for row in hist] == [2, 4, 6, 8]
+        assert all(np.isfinite(row["loss"]) for row in hist)
+        assert os.path.exists(tmp_path / run / "config.json")
+    hist_a = json.load(open(tmp_path / "a" / "history.json"))
+    hist_b = json.load(open(tmp_path / "b" / "history.json"))
+    assert [r["loss"] for r in hist_a] == [r["loss"] for r in hist_b]
+
+
+def test_train_profile_and_unported_options(tmp_path, host_batches, bank):
+    cfg = _cfg(**{"train.num_steps": "5", "train.log_every": "5",
+                  "train.checkpoint_every": "5", "train.profile_steps": "1",
+                  "train.logdir": str(tmp_path / "p")})
+    train(cfg, iter(host_batches), occluder_bank=bank, device="cpu")
+    assert os.path.exists(tmp_path / "p" / "profile" / "trace.json")
+    with pytest.raises(NotImplementedError, match="validate_every"):
+        train(_cfg(**{"train.validate_every": "2", "train.num_steps": "4"}), iter([]))
+    with pytest.raises(NotImplementedError, match="fused_steps"):
+        train(_cfg(**{"train.fused_steps": "2"}), iter([]))
+    with pytest.raises(NotImplementedError, match="backbone_init"):
+        create_train_state(_cfg(**{"train.backbone_init": "x.npz"}))
+    with pytest.raises(NotImplementedError, match="model_class"):
+        compute_losses(None, None, {"coords3d_true": torch.zeros(1, 17, 3)},
+                       apply_overrides(_cfg(), {"model.model_class": "twofive"}))
+
+
+def test_clip_uses_optax_rule():
+    from metro_pose3d_tpu_torch.train.loop import clip_by_global_norm_
+
+    g = [torch.tensor([3.0, 4.0]), torch.tensor([12.0])]
+    norm = torch.nn.utils.get_total_norm(g)
+    assert float(norm) == 13.0
+    clip_by_global_norm_(g, 1.0, norm)
+    want = optax.clip_by_global_norm(1.0).update([jnp.array([3.0, 4.0]), jnp.array([12.0])],
+                                                 None)[0]
+    for a, b in zip(g, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
