@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
-nvcc. It builds the four CUDA kernels from `metro_pose3d_tpu_torch/csrc/`
-into `build/kernels/`, then runs in phases:
+nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
+`build/kernels/`, then runs in phases:
 
   1 env      torch and CUDA versions, the card's name and power limit
   2 build    nvcc build of the kernel library, in seconds
@@ -29,10 +29,36 @@ into `build/kernels/`, then runs in phases:
  11 t-parity one float32 train step (TF32 off) on the card and on the CPU
  12 t-time   K2, K3-bwd and the bf16 train step at B=96 (informative), with
              a profiler breakdown of the step
+ 13 modes    the pool's `torch` and `keras` alignments: forward bit for bit
+             (float32 and bf16, even and odd sizes, all-negative border
+             windows, the main-path shape), backward at phase 9's tolerances
+             on random, tied and post-ReLU inputs, with the share of tied
+             windows; then their times beside `F.max_pool2d`
+ 14 families serving at full width (bf16, 256^2, B=64, flip TTA, full depth)
+             of (a) the torchvision layout: resnet50 v1.5, torch padding,
+             stride on the first unit; (b) the Keras-v2 layout: resnet50 v2,
+             keras padding, stride on the last unit, v2 biases; (c) resnet34
+             with (a)'s flags; (d) the 2.5D head on the default backbone:
+             3 crop-in + 3 tile-in requests each, the pool kernel of the
+             family's alignment and the warp must have launched; float32
+             card against CPU for (a) and (b); crops/s of (a), (b), (c)
+ 15 f-train  training (a) from a backbone `.npz` written from a seeded
+             torchvision-named state dict (`train.backbone_init`): 6 steps
+             of 64 + 32 rows on one batch through `train()`, the loss must
+             fall, the `torch` forward and backward kernels must have
+             launched; 3 steps of (b) for the `keras` pair; one float32 step
+             of (a) on the card and on the CPU
+ 16 probes   each probe kernel == its plain version, then the probes' own
+             entry points (`probes.gather.main`, `probes.prims.main`) with
+             their times and rates
 
 A failed phase raises, so the script exits non-zero. The last two lines are
-the kernels' JSON record and `{"ok": true, "device": {...}}`. Without CUDA
-it exits non-zero at once and prints no result. It imports no jax.
+the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
+record holds its launches on the path that runs it, its time, its plain
+version's, its bound (the larger of bytes moved over the card's 3.35 TB/s
+and operations over the card's peak for their type) and, where one PyTorch
+call computes the same function, that call's time. Without CUDA it exits
+non-zero at once and prints no result. It imports no jax.
 """
 from __future__ import annotations
 
@@ -47,6 +73,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 BATCH = 64
@@ -63,6 +90,22 @@ N3D, N2D = 64, 32  # rows of a train batch (Config().train.batch_size, batch_siz
 # also moves where a ReLU input within that roundoff of 0 changes side.
 TRAIN_PARITY_RTOL = {"loss": 1e-4, "loss3d": 1e-4, "loss2d": 1e-4, "grad_norm": 1e-3}
 STATS_ATOL = 1e-4
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
+# dense bf16 tensor-core rate, float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "float32": 67e12}
+FAMILIES = {  # name: (overrides of Config(), the pool alignment it runs)
+    "a_torchvision_r50": ({"model.backbone": "resnet50", "model.preactivation": "false",
+                           "model.conv_padding": "torch", "model.stride_position": "first"},
+                          "torch"),
+    "b_keras_v2_r50": ({"model.backbone": "resnet50", "model.preactivation": "true",
+                        "model.conv_padding": "keras", "model.stride_position": "last",
+                        "model.v2_biases": "true"}, "keras"),
+    "c_torchvision_r34": ({"model.backbone": "resnet34", "model.preactivation": "false",
+                           "model.conv_padding": "torch", "model.stride_position": "first"},
+                          "torch"),
+    "d_twofive": ({"model.model_class": "twofive"}, "same"),
+}
 
 
 def fail(msg: str):
@@ -83,7 +126,7 @@ def crop_params(rng, b, tile, side, kind):
     kind: "normal" (boxes near the axis, mild roll), "rot90" (roll near
     +-90 degrees), "behind" (a wide crop turned ~80 degrees off the source
     axis, so part of its rays pass behind the source camera)."""
-    from metro_pose3d_tpu.geom.camera import Camera, get_warp_params
+    from metro_pose3d_tpu_torch.geom.camera import Camera, get_warp_params
 
     hs, ks, ds, intr = [], [], [], []
     for _ in range(b):
@@ -120,20 +163,6 @@ def tile_batch(rng, b, tile, side, kind="normal"):
             "warp_h": h, "warp_k": k, "warp_dist": d, "intrinsics": intr}
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device time of fn() per call, by CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def warp_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """Max abs difference; NaN (rays at the horizon with distortion) must coincide."""
     if not torch.equal(torch.isnan(a), torch.isnan(b)):
@@ -142,14 +171,35 @@ def warp_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[ok] - b[ok]).abs().max())
 
 
-def tie_count(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """For each window of the SAME 3x3/2 pool, how many taps equal its max y."""
-    from metro_pose3d_tpu_torch.ops.pool import _same_geometry
+def bound(n_bytes: float, n_ops: float, op_type: str = "float32"):
+    """-> (bound_ms, bound_by): the least time the card could take to move
+    `n_bytes` (every input read once, every output written once) or to do
+    `n_ops` operations of `op_type`, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    oh, ow, (top, bottom), (left, right) = _same_geometry(x.shape[2], x.shape[3])
-    xp = torch.nn.functional.pad(x.float(), (left, right, top, bottom), value=float("-inf"))
-    return sum((xp[:, :, dy: dy + 2 * oh: 2, dx: dx + 2 * ow: 2] == y.float()).int()
-               for dy in range(3) for dx in range(3))
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tie_count(x: torch.Tensor, y: torch.Tensor, mode: str = "same", pad_only: bool = False):
+    """For each window of the 3x3/2 pool in the alignment `mode`, how many
+    taps equal its max y; with `pad_only`, how many pad taps do."""
+    from metro_pose3d_tpu_torch.ops.pool import pool_geometry
+
+    oh, ow, (top, bottom), (left, right), fill = pool_geometry(x.shape[2], x.shape[3], mode)
+    pads = (left, right, top, bottom)
+    xp = F.pad(x.float(), pads, value=fill)
+    is_pad = F.pad(torch.zeros_like(x, dtype=torch.bool), pads, value=True)
+    total = 0
+    for dy in range(3):
+        for dx in range(3):
+            view = (slice(None), slice(None), slice(dy, dy + 2 * oh, 2), slice(dx, dx + 2 * ow, 2))
+            eq = xp[view] == y.float()
+            total = total + ((eq & is_pad[view]) if pad_only else eq).int()
+    return total
 
 
 def profile_breakdown(fn, steps: int) -> str:
@@ -175,7 +225,7 @@ def profile_breakdown(fn, steps: int) -> str:
     total = sum(t for t, _ in kernels)
     if total == 0:
         return "[12 t-time] profiler: no device time recorded"
-    names = ("maxpool3x3s2_same_bwd", "maxpool3x3s2_same_kernel", "occluder_paste", "warp_crop")
+    names = ("maxpool3x3s2_bwd_kernel", "maxpool3x3s2_kernel", "occluder_paste", "warp_crop")
     ours = {n: sum(t for t, k in kernels if n in k) for n in names}
     ops.sort(reverse=True)
     top = "; ".join(f"{k} {t / total:.1%}" for t, k in ops[:8])
@@ -239,17 +289,442 @@ def occluder_case(rng, b, side, n_occ, occ_side=96):
     return crops, idx, aff, enabled
 
 
+def pool_inputs(gen, dev, shape, dtype, kind):
+    """A channels_last pool input: "random"; "ties" (quantised to quarters,
+    neighbours often equal); "relu" (a smooth field through a ReLU, as
+    after bn_stem + ReLU: about half exact zeros, in patches, so whole
+    windows tie at 0); "negative" (all values below 0, so a Keras border
+    window returns its 0 pad)."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    if kind == "ties":
+        x = torch.round(x * 4) / 4
+    elif kind == "relu":
+        b, c, h, w = shape
+        coarse = torch.randn((b, c, -(-h // 4), -(-w // 4)), generator=gen, device=dev)
+        smooth = coarse.repeat_interleave(4, dim=2).repeat_interleave(4, dim=3)[:, :, :h, :w]
+        x = torch.relu(smooth + 0.3 * x)
+    elif kind == "negative":
+        x = -x.abs() - 0.5
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def check_pool_bwd(pool, x, g, mode):
+    """Backward kernel against the plain backward on float32 copies: float32
+    within 1e-6, bf16 within one bf16 ulp of the float32 sum. -> (max abs
+    err, note)."""
+    got = pool.max_pool_bwd_cuda(x, g, mode)
+    want = pool.max_pool_bwd_plain(x.float(), g.float(), mode)
+    err = (got.float() - want).abs()
+    if x.dtype == torch.float32:
+        ok, note = float(err.max()) <= 1e-6, f"max abs err {float(err.max()):.2e} (tol 1e-6)"
+    else:
+        ulps = float((err / (want.abs() * 2 ** -7).clamp_min(1e-30)).max())
+        ok = bool((err <= want.abs() * 2 ** -7).all())
+        note = f"max err {ulps:.2f} bf16 ulp of the float32 sum (tol 1)"
+    if not ok:
+        fail(f"pool backward kernel ({mode}) off its plain version at {tuple(x.shape)} "
+             f"{x.dtype}: {note}")
+    return float(err.max()), note
+
+
+def phase_pool_modes(gen, dev, card):
+    """13: the `torch` and `keras` alignments, forward and backward, and
+    their times. -> {(mode, "fwd"|"bwd"): {"max_abs_err", "ms", "plain_ms", ...}}."""
+    from metro_pose3d_tpu_torch.ops import pool
+    from metro_pose3d_tpu_torch.probes import time_ms
+
+    rec = {}
+    for mode in ("torch", "keras"):
+        fwd_err = 0.0
+        for shape, dtype, kind in (((128, 64, 128, 128), torch.bfloat16, "random"),
+                                   ((16, 64, 128, 128), torch.float32, "relu"),
+                                   ((8, 64, 127, 129), torch.bfloat16, "negative"),
+                                   ((8, 24, 33, 18), torch.float32, "negative"),
+                                   ((4, 64, 128, 128), torch.bfloat16, "negative")):
+            x = pool_inputs(gen, dev, shape, dtype, kind)
+            got, want = pool.max_pool_cuda(x, mode), pool.max_pool_plain(x, mode)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                fail(f"pool kernel ({mode}) differs from its plain version at {shape} {dtype}")
+            fwd_err = max(fwd_err, float((got.float() - want.float()).abs().max()))
+            note = ""
+            if kind == "negative":
+                zeros = float((got == 0).float().mean())
+                border = 1 - (got.shape[2] - 2) * (got.shape[3] - 2) / (got.shape[2] * got.shape[3])
+                if (mode == "keras") != (zeros > 0) or zeros > border:
+                    fail(f"pool ({mode}) on an all-negative input: share of zero outputs "
+                         f"{zeros}, border windows {border}")
+                note = f", all-negative input: outputs equal to the 0 pad {zeros:.4f}"
+            print(f"[13 modes] {mode} fwd {tuple(shape)} {dtype} {kind}: bit-exact{note}")
+        rec[mode, "fwd"] = {"max_abs_err": fwd_err}
+
+        bwd_err = 0.0
+        for shape, dtype, kind in (((96, 64, 128, 128), torch.bfloat16, "relu"),
+                                   ((16, 64, 128, 128), torch.float32, "relu"),
+                                   ((8, 64, 127, 129), torch.bfloat16, "ties"),
+                                   ((8, 24, 33, 18), torch.float32, "ties"),
+                                   ((8, 64, 127, 129), torch.bfloat16, "random"),
+                                   ((8, 24, 33, 18), torch.float32, "random")):
+            x = pool_inputs(gen, dev, shape, dtype, kind)
+            y = pool.max_pool_plain(x, mode)
+            g = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+            err, note = check_pool_bwd(pool, x, g, mode)
+            bwd_err = max(bwd_err, err)
+            tied = float((tie_count(x, y, mode) > 1).float().mean())
+            pad = float((tie_count(x, y, mode, pad_only=True) > 0).float().mean())
+            print(f"[13 modes] {mode} bwd {tuple(shape)} {dtype} {kind}: {note}; windows with "
+                  f"a tied max {tied:.3f}" + (f", with a pad cell at the max {pad:.4f}"
+                                             if mode == "keras" else ""))
+        rec[mode, "bwd"] = {"max_abs_err": bwd_err}
+        del x, y, g
+
+        # times at the main-path shapes (serving: B=64 with its mirror; training: 96 rows)
+        xf = pool_inputs(gen, dev, (128, 64, 128, 128), torch.bfloat16, "relu")
+        rec[mode, "fwd"].update(
+            ms=time_ms(lambda: pool.max_pool_cuda(xf, mode)),
+            plain_ms=time_ms(lambda: pool.max_pool_plain(xf, mode)),
+            bound=bound(nbytes(xf) * 1.25, 9 * xf.numel() / 4))
+        if mode == "torch":
+            rec[mode, "fwd"]["library_ms"] = time_ms(lambda: F.max_pool2d(xf, 3, 2, padding=1))
+            if not torch.equal(F.max_pool2d(xf, 3, 2, padding=1), pool.max_pool_cuda(xf, mode)):
+                fail("F.max_pool2d(x, 3, 2, 1) differs from the torch-mode kernel's forward")
+        else:
+            rec[mode, "fwd"]["library_ms"] = None
+            rec[mode, "fwd"]["two_calls_ms"] = time_ms(
+                lambda: F.max_pool2d(F.pad(xf, (1, 1, 1, 1)), 3, 2))
+        del xf
+        xb = pool_inputs(gen, dev, (96, 64, 128, 128), torch.bfloat16, "relu")
+        gb = torch.randn((96, 64, 64, 64), generator=gen, device=dev).to(torch.bfloat16)
+        gb = gb.contiguous(memory_format=torch.channels_last)
+        xr = xb.clone().requires_grad_(True)
+        yr = F.max_pool2d(xr if mode == "torch" else F.pad(xr, (1, 1, 1, 1)), 3, 2,
+                          padding=1 if mode == "torch" else 0)
+        rec[mode, "bwd"].update(
+            ms=time_ms(lambda: pool.max_pool_bwd_cuda(xb, gb, mode)),
+            plain_ms=time_ms(lambda: pool.max_pool_bwd_plain(xb, gb, mode)),
+            bound=bound(2 * nbytes(xb) + nbytes(gb), 9 * gb.numel()),
+            # the library's gradient hands each window's whole gradient to one
+            # argmax: timed, but another function than the chain's gradient
+            library_ms=None,
+            argmax_gradient_ms=time_ms(
+                lambda: torch.autograd.grad(yr, xr, gb, retain_graph=True)))
+        del xb, gb, xr, yr
+        f, b = rec[mode, "fwd"], rec[mode, "bwd"]
+        lib = (f"F.max_pool2d {f['library_ms']:.4f} ms" if mode == "torch"
+               else f"F.pad + F.max_pool2d (two calls) {f['two_calls_ms']:.4f} ms")
+        print(f"[13 modes] {mode} fwd [128,64,128,128] bf16: kernel {f['ms']:.4f} ms, plain "
+              f"{f['plain_ms']:.4f} ms, {lib}, bound {f['bound'][0]:.4f} ms  [{card}]")
+        print(f"[13 modes] {mode} bwd [96,64,128,128] bf16: kernel {b['ms']:.4f} ms, plain "
+              f"{b['plain_ms']:.4f} ms, the library's argmax gradient (another function) "
+              f"{b['argmax_gradient_ms']:.4f} ms, bound {b['bound'][0]:.4f} ms  [{card}]")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_cfg(name, extra=None):
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+
+    return apply_overrides(Config(), {**FAMILIES[name][0], **(extra or {})})
+
+
+def phase_families_serving(rng, dev, card):
+    """14: the other model families through the serving entry points.
+    -> {family: {"pool_<mode>": launches, "warp": launches}}."""
+    from metro_pose3d_tpu_torch.evaluation.engine import TILE_KEYS, PoseEstimator, make_predict_fn
+    from metro_pose3d_tpu_torch.geom.joints import H36M_17
+    from metro_pose3d_tpu_torch.init import init_metro_model
+    from metro_pose3d_tpu_torch.ops import pool, warp
+    from metro_pose3d_tpu_torch.probes import time_ms
+
+    launches = {}
+    for name, (_, mode) in FAMILIES.items():
+        cfg = family_cfg(name)
+        side = cfg.model.proc_side
+        model = init_metro_model(cfg.model, SEED + 10, dev)
+        est = PoseEstimator(cfg, model, H36M_17, flip_tta=True, reconstruct=True)
+        crop_reqs = [(rng.randint(0, 256, (BATCH, side, side, 3)).astype(np.uint8),
+                      crop_params(rng, BATCH, TILE, side, "normal")[3]) for _ in range(3)]
+        tile_reqs = [tile_batch(rng, BATCH, TILE, side) for _ in range(3)]
+        pool.reset_launches()
+        warp.LAUNCHES = 0
+        outs = [est.predict_crops(c, i) for c, i in crop_reqs]
+        outs += [est.predict_tiles(b) for b in tile_reqs]
+        torch.cuda.synchronize()
+        launches[name] = {"pool_" + mode: pool.MODE_LAUNCHES[mode], "warp": warp.LAUNCHES}
+        if cfg.model.model_class == "twofive":
+            shapes = {"pose25d": (BATCH, 17, 3), "pose2d_px": (BATCH, 17, 2)}
+        else:
+            shapes = {"pose3d_rootrel": (BATCH, 17, 3), "pose2d_px": (BATCH, 17, 2),
+                      "pose3d_abs": (BATCH, 17, 3)}
+        for out in outs:
+            if set(out) != set(shapes):
+                fail(f"{name}: serving outputs {sorted(out)}, want {sorted(shapes)}")
+            for key, shape in shapes.items():
+                if tuple(out[key].shape) != shape or not bool(torch.isfinite(out[key]).all()):
+                    fail(f"{name}: output {key} has shape {tuple(out[key].shape)} or is not finite")
+        other = sum(n for m, n in pool.MODE_LAUNCHES.items() if m != mode)
+        if min(launches[name].values()) == 0 or other:
+            fail(f"{name}: the serving path did not launch its kernels: {launches[name]}, "
+                 f"pool launches by mode {pool.MODE_LAUNCHES}")
+        line = (f"[14 families] {name} ({cfg.model.backbone}, {mode} pool, bf16, TTA, B={BATCH}): "
+                f"3 crop-in + 3 tile-in requests, outputs finite, launches {launches[name]}")
+        if name != "d_twofive":
+            fn = make_predict_fn(cfg, H36M_17.mirror_mapping, root_index=0, flip_tta=True,
+                                 reconstruct=True)
+            args = (model, torch.from_numpy(crop_reqs[0][0]).to(dev),
+                    torch.from_numpy(crop_reqs[0][1]).to(dev))
+            ms = time_ms(lambda: fn(*args), iters=10)
+            line += f"; crop-in {ms:.3f} ms/batch, {BATCH / ms * 1e3:.1f} crops/s  [{card}]"
+        print(line)
+        del model, est
+        torch.cuda.empty_cache()
+
+    # float32 on the card against float32 on the CPU, (a) and (b)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in ("a_torchvision_r50", "b_keras_v2_r50"):
+        cfg32 = family_cfg(name, {"model.compute_dtype": "float32"})
+        side = cfg32.model.proc_side
+        cpu_model = init_metro_model(cfg32.model, SEED + 11, "cpu")
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        batch = tile_batch(rng, 2, TILE, side)
+        res = [PoseEstimator(cfg32, m, H36M_17, flip_tta=True, reconstruct=True).predict_tiles(
+            {k: batch[k] for k in TILE_KEYS}) for m in (gpu_model, cpu_model)]
+        worst = {}
+        for key, tol in PARITY_TOL.items():
+            worst[key] = float((res[0][key].float().cpu() - res[1][key].float()).abs().max())
+            if not worst[key] <= tol:
+                fail(f"{name}: card vs CPU float32 {key}: {worst[key]} > {tol}")
+        print(f"[14 families] {name} float32 card vs CPU, tile-in B=2, TF32 off: max abs diff "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tol {PARITY_TOL})")
+        del gpu_model, cpu_model
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    return launches
+
+
+def torchvision_state_dict(rng, depths=(3, 4, 6, 3), base=64):
+    """A state dict with torchvision's ResNet-50 names and shapes, drawn from
+    `rng`: lecun-normal kernels, BN weights and variances in 0.5..1.5."""
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[name] = rng.normal(0, (cin * k * k) ** -0.5, (cout, cin, k, k)).astype(np.float32)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        sd[f"{name}.bias"] = rng.normal(0, 0.1, c).astype(np.float32)
+        sd[f"{name}.running_mean"] = rng.normal(0, 0.1, c).astype(np.float32)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+
+    conv("conv1.weight", base, 3, 7)
+    bn("bn1", base)
+    cin = base
+    for stage, n_blocks in enumerate(depths):
+        f = base * 2 ** stage
+        for b in range(n_blocks):
+            pre = f"layer{stage + 1}.{b}"
+            for k, (co, ci, ks) in enumerate(((f, cin, 1), (f, f, 3), (4 * f, f, 1)), start=1):
+                conv(f"{pre}.conv{k}.weight", co, ci, ks)
+                bn(f"{pre}.bn{k}", co)
+            if cin != 4 * f:
+                conv(f"{pre}.downsample.0.weight", 4 * f, cin, 1)
+                bn(f"{pre}.downsample.1", 4 * f)
+            cin = 4 * f
+    return sd
+
+
+def phase_families_training(rng, dev, card, bank_np):
+    """15: training (a) from a converted backbone file, and (b) for the
+    keras pool pair. -> {"pool_torch", "pool_torch_bwd", "pool_keras",
+    "pool_keras_bwd", "warp", "occluder"} launches."""
+    from metro_pose3d_tpu_torch.ops import occlusion, pool, warp
+    from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
+    from metro_pose3d_tpu_torch.train.loop import make_train_step
+    from metro_pose3d_tpu_torch.train.state import create_train_state
+    from metro_pose3d_tpu_torch.train.trainer import train
+    from metro_pose3d_tpu_torch.utils.convert_backbone import (
+        load_backbone_npz, save_backbone_npz, torchvision_resnet_to_state_dict,
+    )
+
+    side = 256
+    host = [train_batch(rng, N3D, N2D, TILE, side, len(bank_np))]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "backbone_r50_torchvision.npz")
+        trunk = torchvision_resnet_to_state_dict(torchvision_state_dict(rng))
+        save_backbone_npz(trunk, npz)
+        if set(load_backbone_npz(npz)) != set(trunk):
+            fail("the backbone file does not hold the converted leaves")
+        for name, steps in (("a_torchvision_r50", 6), ("b_keras_v2_r50", 3)):
+            mode = FAMILIES[name][1]
+            extra = {"train.checkpoint_every": str(steps), "train.log_every": "1",
+                     "train.validate_every": "0", "train.warmup_steps": "0",
+                     "data.cycle_batches": "1", "train.logdir": os.path.join(tmp, name)}
+            if name.startswith("a_"):
+                extra["train.backbone_init"] = npz
+            cfg = family_cfg(name, extra)
+            if name.startswith("a_"):
+                warm = create_train_state(cfg, dev).model.backbone.state_dict()
+                bad = [k for k, v in trunk.items()
+                       if not torch.equal(warm[k].cpu(), torch.from_numpy(v))]
+                if bad or len(trunk) != len(warm):
+                    fail(f"train.backbone_init: {len(bad)} leaves differ from the file, "
+                         f"{len(trunk)} in the file, {len(warm)} in the trunk")
+                del warm
+            pool.reset_launches()
+            warp.LAUNCHES = occlusion.LAUNCHES = 0
+            t0 = time.perf_counter()
+            state = train(cfg, iter(host), occluder_bank=bank_np, max_steps=steps)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            with open(os.path.join(cfg.train.logdir, "history.json")) as f:
+                losses = [r["loss"] for r in json.load(f)]
+            got = {f"pool_{mode}": pool.MODE_LAUNCHES[mode],
+                   f"pool_{mode}_bwd": pool.MODE_BWD_LAUNCHES[mode],
+                   "warp": warp.LAUNCHES, "occluder": occlusion.LAUNCHES}
+            if (state.step != steps or len(losses) != steps or not np.isfinite(losses).all()
+                    or not losses[-1] < losses[0]):
+                fail(f"{name}: {steps} steps on one batch, losses {losses}")
+            other = sum(n for m, n in pool.MODE_LAUNCHES.items() if m != mode)
+            if min(got.values()) == 0 or other:
+                fail(f"{name}: the training path did not launch its kernels: {got}, pool "
+                     f"launches by mode {pool.MODE_LAUNCHES}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            print(f"[15 f-train] {name} R50@256 bf16 B={N3D}+{N2D}"
+                  + (", backbone from the converted file" if name.startswith("a_") else "")
+                  + f": {steps} steps on one batch in {dt:.1f} s, loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}; launches {got}")
+            del state
+            torch.cuda.empty_cache()
+
+    # one float32 step of (a) on the card and on the CPU, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg = family_cfg("a_torchvision_r50", {"model.compute_dtype": "float32",
+                                            "model.proc_side": "128", "train.warmup_steps": "0"})
+    pbatch = train_batch(rng, 3, 1, TILE, 128, len(bank_np))
+    res = []
+    for d in (dev, torch.device("cpu")):
+        st = create_train_state(pcfg, d, seed=SEED + 12)
+        step = make_train_step(pcfg, 0, occluder_bank=pack_occluder_bank_for(bank_np, d))
+        res.append({k: float(v) for k, v in step(st, batch_to_device(pbatch, d)).items()})
+        del st
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    mg, mc = res
+    for k, tol in TRAIN_PARITY_RTOL.items():
+        if not abs(mg[k] - mc[k]) <= tol * abs(mc[k]):
+            fail(f"(a) train parity {k}: card {mg[k]} CPU {mc[k]} (rtol {tol})")
+    print("[15 f-train] (a) one float32 step R50@128 B=4, card vs CPU, TF32 off: rel diff "
+          + ", ".join(f"{k} {abs(mg[k] - mc[k]) / abs(mc[k]):.1e}" for k in TRAIN_PARITY_RTOL)
+          + f" (rtol {TRAIN_PARITY_RTOL})")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_probes(dev, card):
+    """16: each probe kernel against its plain version (exact), then the
+    probes' entry points. -> list of kernel records."""
+    from metro_pose3d_tpu_torch.probes import gather, prims, time_ms
+
+    ref = {"rows_i32": "scripts/exp_pallas_gather.py:51",
+           "cols_i32": "scripts/exp_pallas_gather.py:71",
+           "cols_f32": "scripts/exp_pallas_gather.py:110"}
+    records = []
+    src = "metro_pose3d_tpu_torch/csrc/probes.cu"
+
+    def max_abs_err(got, want):
+        return float((got.double() - want.double()).abs().max())
+
+    # the three probes of the first script, then the sweep of the second
+    sweep = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "max_abs_err": 0.0}
+    for i, (h, w, axis, dtype, b) in enumerate(gather.SHAPES):
+        x, idx = gather.make_case(h, w, axis, dtype, b, device=dev)
+        got, want = gather.gather_cuda(x, idx, axis), gather.gather_plain(x, idx, axis)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if not torch.equal(got, want):
+            fail(f"gather probe differs from take_along_dim at {(b, h, w)} axis {axis} {dtype}: "
+                 f"max abs err {err}")
+        ms = time_ms(lambda: gather.gather_cuda(x, idx, axis))
+        plain = time_ms(lambda: gather.gather_plain(x, idx, axis))
+        if i < len(ref):
+            name = list(ref)[i]
+            bms, by = bound(nbytes(x, idx, got), 0)
+            records.append({"name": f"probe_gather_{name}", "route": "cuda", "source": src,
+                            "replaces": ref[name], "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                            "library_ms": plain, "cases": [(h, w, axis, dtype, b)]})
+        else:
+            sweep["ms"] += ms
+            sweep["plain_ms"] += plain
+            sweep["bytes"] += nbytes(x, idx, got)
+            sweep["max_abs_err"] = max(sweep["max_abs_err"], err)
+        del x, idx, got, want
+    bms, by = bound(sweep["bytes"], 0)
+    records.append({"name": "probe_gather_sweep", "route": "cuda", "source": src,
+                    "replaces": "scripts/exp_pallas_gather2.py:33",
+                    "max_abs_err": sweep["max_abs_err"], "ms": sweep["ms"],
+                    "plain_ms": sweep["plain_ms"], "bound_ms": bms, "bound_by": by,
+                    "library_ms": sweep["plain_ms"], "cases": list(gather.SHAPES[len(ref):])})
+    print(f"[16 probes] gather: {len(gather.SHAPES)} shapes, rows and columns, int32 and "
+          f"float32: all equal to take_along_dim")
+
+    lines = {"lane_loop": 64, "rowsel": 100, "roll": 129, "dynslice": 158}
+    by_kernel = {}
+    for name, (cuda_fn, plain_fn, args, n_work) in prims.make_cases(device=dev).items():
+        got, want = cuda_fn(*args), plain_fn(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            fail(f"probe {name!r} differs from its plain version: max abs err {err}")
+        kernel = cuda_fn.__name__[:-len("_cuda")]
+        ops = 2 * 160 * n_work if kernel == "rowsel" else n_work  # multiply-adds, or adds
+        bms, by = bound(nbytes(*args, got), ops, "bf16" if kernel == "rowsel" else "float32")
+        r = by_kernel.setdefault(kernel, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                          "bound_ms": 0.0, "bound_by": by})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += time_ms(lambda: cuda_fn(*args))
+        r["plain_ms"] += time_ms(lambda: plain_fn(*args), iters=3, warmup=1)
+        r["bound_ms"] += bms
+        print(f"[16 probes] {name}: equal to its plain version")
+    for kernel, r in by_kernel.items():
+        records.append({"name": f"probe_{kernel}", "route": "cuda", "source": src,
+                        "replaces": f"scripts/exp_pallas_prims.py:{lines[kernel]}",
+                        **r, "library_ms": None})
+
+    # the probes' own entry points, counting launches
+    gather.LAUNCHES.clear()
+    for k in prims.LAUNCHES:
+        prims.LAUNCHES[k] = 0
+    print(f"[16 probes] probes.gather.main() and probes.prims.main()  [{card}]")
+    gather.main()
+    prims.main()
+    for r in records:
+        # a gather record counts the launches at its own shapes, and every one
+        # of them must have been launched
+        per_case = [gather.LAUNCHES.get(case, 0) for case in r.pop("cases", ())]
+        r["launches"] = sum(per_case) if per_case else prims.LAUNCHES[r["name"][len("probe_"):]]
+        if r["launches"] == 0 or 0 in per_case:
+            fail(f"the probes' entry points did not launch {r['name']}: {per_case}")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    from metro_pose3d_tpu.config import Config, apply_overrides
-    from metro_pose3d_tpu.geom.joints import H36M_17
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+    from metro_pose3d_tpu_torch.geom.joints import H36M_17
     from metro_pose3d_tpu_torch.evaluation.engine import TILE_KEYS, PoseEstimator
     from metro_pose3d_tpu_torch.init import init_metro_model
     from metro_pose3d_tpu_torch.kernels import build
     from metro_pose3d_tpu_torch.ops import occlusion, pool, warp
+    from metro_pose3d_tpu_torch.probes import time_ms
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(SEED)
@@ -321,11 +796,12 @@ def main() -> int:
     crop_reqs = [(rng.randint(0, 256, (BATCH, side, side, 3)).astype(np.uint8),
                   crop_params(rng, BATCH, TILE, side, "normal")[3]) for _ in range(3)]
     tile_reqs = [tile_batch(rng, BATCH, TILE, side) for _ in range(3)]
-    pool.LAUNCHES = warp.LAUNCHES = 0
+    pool.reset_launches()
+    warp.LAUNCHES = 0
     outs = [est.predict_crops(c, i) for c, i in crop_reqs]
     outs += [est.predict_tiles(b) for b in tile_reqs]
     torch.cuda.synchronize()
-    launches = {"pool": pool.LAUNCHES, "warp": warp.LAUNCHES}
+    launches = {"pool": pool.MODE_LAUNCHES["same"], "warp": warp.LAUNCHES}
     for out in outs:
         for key, shape in (("pose3d_rootrel", (BATCH, 17, 3)), ("pose2d_px", (BATCH, 17, 2)),
                            ("pose3d_abs", (BATCH, 17, 3))):
@@ -368,14 +844,23 @@ def main() -> int:
     xp = xp.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     pool_ms, pool_plain_ms = time_ms(lambda: pool.max_pool_cuda(xp)), time_ms(
         lambda: pool.max_pool_plain(xp))
+    pool_two_calls_ms = time_ms(lambda: F.max_pool2d(
+        F.pad(xp, (0, 1, 0, 1), value=float("-inf")), 3, 2))
+    pool_bound = bound(nbytes(xp) * 1.25, 9 * xp.numel() / 4)
     print(f"[7 time] K3 pool [{2 * BATCH},64,128,128] bf16: kernel {pool_ms:.4f} ms, "
-          f"plain {pool_plain_ms:.4f} ms  [{card}]")
+          f"plain {pool_plain_ms:.4f} ms, F.pad + F.max_pool2d (two calls) "
+          f"{pool_two_calls_ms:.4f} ms, bound {pool_bound[0]:.4f} ms  [{card}]")
+    del xp
     t = {k: torch.from_numpy(v).to(dev) for k, v in tile_reqs[0].items()}
     wargs = (t["source"], t["warp_h"], t["warp_k"], t["warp_dist"], side)
     warp_ms, warp_plain_ms = time_ms(lambda: warp.warp_images_cuda(*wargs)), time_ms(
         lambda: warp.warp_images_plain(*wargs))
+    # each tile, its parameters and each output pixel once; about 60 float32
+    # operations for an output pixel's ray, distortion and bilinear blend
+    warp_out = BATCH * side * side * 3
+    warp_bound = bound(nbytes(*wargs[:4]) + 4 * warp_out, 60 * warp_out / 3)
     print(f"[7 time] K1 warp B={BATCH} {TILE}^2->256^2: kernel {warp_ms:.4f} ms, "
-          f"plain {warp_plain_ms:.4f} ms  [{card}]")
+          f"plain {warp_plain_ms:.4f} ms, bound {warp_bound[0]:.4f} ms  [{card}]")
     from metro_pose3d_tpu_torch.evaluation.engine import make_predict_fn
 
     for form in ("crops", "tiles"):
@@ -470,7 +955,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         logdir = os.path.join(tmp, "run")
-        pool.LAUNCHES = pool.BWD_LAUNCHES = warp.LAUNCHES = occlusion.LAUNCHES = 0
+        pool.reset_launches()
+        warp.LAUNCHES = occlusion.LAUNCHES = 0
         t0 = time.perf_counter()
         state, hist = run(logdir, {}, iter(host), 10)
         first_leg = time.perf_counter() - t0
@@ -482,7 +968,8 @@ def main() -> int:
             fail("the checkpoint of step 5 is missing")
         warp_before = warp.LAUNCHES
         resumed, hist2 = run(logdir, {}, iter(host), 10)
-        train_launches = {"pool": pool.LAUNCHES, "pool_bwd": pool.BWD_LAUNCHES,
+        train_launches = {"pool": pool.MODE_LAUNCHES["same"],
+                          "pool_bwd": pool.MODE_BWD_LAUNCHES["same"],
                           "warp": warp.LAUNCHES, "occluder": occlusion.LAUNCHES}
         if any(v == 0 for v in train_launches.values()):
             fail(f"the training path did not launch every kernel: {train_launches}")
@@ -550,15 +1037,18 @@ def main() -> int:
     # 12 timings (informative; the card's name and power limit beside each)
     occ_ms, occ_plain_ms = time_ms(lambda: occlusion.occlude_cuda(*k2_args)), time_ms(
         lambda: occlusion.occlude_plain(*k2_args))
+    # crops in and out, the bank once; about 40 float32 operations a pixel
+    occ_bound = bound(2 * nbytes(k2_args[0]) + nbytes(*k2_args[1:]), 40 * 96 * side * side)
     print(f"[12 t-time] K2 occluder paste B=96 {side}^2: kernel {occ_ms:.4f} ms, "
-          f"plain {occ_plain_ms:.4f} ms  [{card}]")
+          f"plain {occ_plain_ms:.4f} ms, bound {occ_bound[0]:.4f} ms  [{card}]")
     xb = torch.randn((96, 64, 128, 128), generator=gen, device=dev).to(torch.bfloat16)
     xb = xb.contiguous(memory_format=torch.channels_last)
     gb = torch.randn((96, 64, 64, 64), generator=gen, device=dev).to(torch.bfloat16)
     bwd_ms, bwd_plain_ms = time_ms(lambda: pool.max_pool_bwd_cuda(xb, gb)), time_ms(
         lambda: pool.max_pool_bwd_plain(xb, gb))
+    bwd_bound = bound(2 * nbytes(xb) + nbytes(gb), 9 * gb.numel())
     print(f"[12 t-time] K3-bwd [96,64,128,128] bf16: kernel {bwd_ms:.4f} ms, "
-          f"plain {bwd_plain_ms:.4f} ms  [{card}]")
+          f"plain {bwd_plain_ms:.4f} ms, bound {bwd_bound[0]:.4f} ms  [{card}]")
     del xb, gb
     tcfg = Config()
     st = create_train_state(tcfg, dev, seed=SEED)
@@ -571,28 +1061,52 @@ def main() -> int:
           f"{(N3D + N2D) / step_ms * 1e3:.1f} crops/s, peak {peak:.2f} GiB  [{card}]")
     print(profile_breakdown(lambda: step(st, tb), steps=2))
 
+    del st, step, tb
+    torch.cuda.empty_cache()
+
+    modes = phase_pool_modes(gen, dev, card)  # 13
+    fam_launches = phase_families_serving(rng, dev, card)  # 14
+    ftrain_launches = phase_families_training(rng, dev, card, bank_np)  # 15
+    probe_records = phase_probes(dev, card)  # 16
+
+    def kernel(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms, **more):
+        return {"name": name, "route": "cuda",
+                "source": f"metro_pose3d_tpu_torch/csrc/{source}", "replaces": replaces,
+                "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms, **more}
+
+    pallas_pool = "metro_pose3d_tpu/ops/pool_pallas.py:90"
+    mode_launches = {
+        ("torch", "fwd"): fam_launches["a_torchvision_r50"]["pool_torch"]
+        + fam_launches["c_torchvision_r34"]["pool_torch"] + ftrain_launches["pool_torch"],
+        ("torch", "bwd"): ftrain_launches["pool_torch_bwd"],
+        ("keras", "fwd"): fam_launches["b_keras_v2_r50"]["pool_keras"]
+        + ftrain_launches["pool_keras"],
+        ("keras", "bwd"): ftrain_launches["pool_keras_bwd"],
+    }
     record = {"kernels": [
-        {"name": "maxpool3x3s2_same", "route": "cuda",
-         "source": "metro_pose3d_tpu_torch/csrc/maxpool_same.cu",
-         "replaces": "metro_pose3d_tpu/ops/pool_pallas.py:90",
-         "launches": launches["pool"] + train_launches["pool"],
-         "max_abs_err": pool_err, "ms": pool_ms, "plain_ms": pool_plain_ms},
-        {"name": "maxpool3x3s2_same_bwd", "route": "cuda",
-         "source": "metro_pose3d_tpu_torch/csrc/maxpool_same_bwd.cu",
-         "replaces": "metro_pose3d_tpu/ops/pool_pallas.py:90",
-         "launches": train_launches["pool_bwd"],
-         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms},
-        {"name": "warp_crop", "route": "cuda",
-         "source": "metro_pose3d_tpu_torch/csrc/warp_crop.cu",
-         "replaces": "metro_pose3d_tpu/ops/warp_pallas.py:415",
-         "launches": launches["warp"] + train_launches["warp"],
-         "max_abs_err": warp_max, "ms": warp_ms, "plain_ms": warp_plain_ms},
-        {"name": "occluder_paste", "route": "cuda",
-         "source": "metro_pose3d_tpu_torch/csrc/occluder_paste.cu",
-         "replaces": "metro_pose3d_tpu/ops/warp_pallas.py:507",
-         "launches": train_launches["occluder"],
-         "max_abs_err": occ_err, "ms": occ_ms, "plain_ms": occ_plain_ms},
+        kernel("maxpool3x3s2_same", "maxpool3x3s2.cu", pallas_pool,
+               launches["pool"] + train_launches["pool"] + fam_launches["d_twofive"]["pool_same"],
+               pool_err, pool_ms, pool_plain_ms, pool_bound, None,
+               two_calls_ms=pool_two_calls_ms),
+        kernel("maxpool3x3s2_same_bwd", "maxpool3x3s2_bwd.cu", pallas_pool,
+               train_launches["pool_bwd"], bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, None),
+        *[kernel(f"maxpool3x3s2_{mode}" + ("_bwd" if way == "bwd" else ""),
+                 "maxpool3x3s2_bwd.cu" if way == "bwd" else "maxpool3x3s2.cu", pallas_pool,
+                 mode_launches[mode, way], r["max_abs_err"], r["ms"], r["plain_ms"], r["bound"],
+                 r["library_ms"],
+                 **{k: r[k] for k in ("two_calls_ms", "argmax_gradient_ms") if k in r})
+          for (mode, way), r in modes.items()],
+        kernel("warp_crop", "warp_crop.cu", "metro_pose3d_tpu/ops/warp_pallas.py:415",
+               launches["warp"] + train_launches["warp"], warp_max, warp_ms, warp_plain_ms,
+               warp_bound, None),
+        kernel("occluder_paste", "occluder_paste.cu", "metro_pose3d_tpu/ops/warp_pallas.py:507",
+               train_launches["occluder"], occ_err, occ_ms, occ_plain_ms, occ_bound, None),
+        *probe_records,
     ]}
+    for k in record["kernels"]:
+        if k["launches"] == 0:
+            fail(f"kernel {k['name']} was launched by no path of this run")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,19 @@
-"""metro_pose3d_tpu_torch — the PyTorch + CUDA port of metro_pose3d_tpu.
+"""metro_pose3d_tpu_torch: the PyTorch + CUDA port of metro_pose3d_tpu.
 
-The single-person serving path runs here on an NVIDIA Hopper GPU: uint8
-crops (or uint8 source tiles and warp parameters) -> ResNet-50 v2 with a
-dilated final stage -> metric volumetric and 2D heatmap heads -> soft-argmax
--> flip TTA -> absolute reconstruction. Two hand-written CUDA kernels carry
-it: the stem max pool (`ops/pool.py`, `csrc/maxpool_same.cu`) and the crop
-warp (`ops/warp.py`, `csrc/warp_crop.cu`). On CPU tensors every kernel
+The single-person serving path and the single-process training path run
+here on an NVIDIA Hopper GPU: uint8 crops (or uint8 source tiles and warp
+parameters) -> ResNet (v2 or v1.5, bottleneck or basic block, SAME, torch
+or Keras padding) with a dilated final stage -> metric volumetric (or 2.5D)
+and 2D heatmap heads -> soft-argmax -> flip TTA -> absolute reconstruction;
+and on-device augmentation -> losses -> Adam, with checkpoints and the
+ImageNet warm start. Hand-written CUDA kernels carry them: the stem max
+pool and its backward (`ops/pool.py`), the crop warp (`ops/warp.py`) and the
+occluder paste (`ops/occlusion.py`), from the sources in `csrc/`; `probes/`
+holds measurement kernels that no path calls. On CPU tensors every kernel
 wrapper runs its plain PyTorch version, which the tests compare against the
-JAX package.
+JAX package. Entry points run on the card unless the caller passes
+`device="cpu"`.
 
-The package imports torch and never jax or flax. From the JAX package it
-imports only `config`, `reference_constants` and `geom`, which are numpy.
+The package imports torch and never jax or flax, and nothing of the JAX
+package: `config`, `reference_constants` and `geom` are its own copies.
 """

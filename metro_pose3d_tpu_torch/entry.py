@@ -3,8 +3,9 @@ from __future__ import annotations
 
 import torch
 
-from metro_pose3d_tpu.config import Config
-from metro_pose3d_tpu.geom.joints import H36M_17
+from metro_pose3d_tpu_torch.config import Config
+from metro_pose3d_tpu_torch.device import resolve_device
+from metro_pose3d_tpu_torch.geom.joints import H36M_17
 from metro_pose3d_tpu_torch.evaluation.engine import make_predict_fn
 from metro_pose3d_tpu_torch.init import init_metro_model
 
@@ -13,9 +14,9 @@ def entry(device=None, seed: int = 0, batch_size: int = 4):
     """-> (fn, args): the crop-in predict fn of the default `Config()`
     (ResNet-50 @ 256, bf16, flip TTA, full reconstruction) and its
     arguments (model with seeded random weights, zero uint8 crops,
-    intrinsics), all on `device` (default: CUDA when present, else CPU)."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    intrinsics), all on `device` (default: the card; a RuntimeError where
+    CUDA is absent)."""
+    device = resolve_device(device)
     cfg = Config()
     model = init_metro_model(cfg.model, seed, device)
     side = cfg.model.proc_side

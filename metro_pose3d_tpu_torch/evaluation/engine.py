@@ -11,12 +11,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from metro_pose3d_tpu.config import Config
-from metro_pose3d_tpu_torch.models.metro import MetroModel, decode_metro
+from metro_pose3d_tpu_torch.config import Config, apply_matmul_precision
+from metro_pose3d_tpu_torch.models.metro import MetroModel, get_decoder
 from metro_pose3d_tpu_torch.ops.color import normalize
 from metro_pose3d_tpu_torch.ops.decode import root_relative
 from metro_pose3d_tpu_torch.ops.pose3d import reconstruct_absolute, rescale_to_bone_lengths
-from metro_pose3d_tpu_torch.ops.tta import flip_crop, unflip_pose2d, unflip_pose3d
+from metro_pose3d_tpu_torch.ops.tta import (
+    flip_crop, unflip_pose2d, unflip_pose3d, unflip_pose25d,
+)
 from metro_pose3d_tpu_torch.pipeline.device import device_augment
 
 TILE_KEYS = ("source", "warp_h", "warp_k", "warp_dist", "intrinsics")
@@ -39,11 +41,16 @@ def make_predict_fn(
       from_tiles=True:  (model, batch dict with the keys of `TILE_KEYS`)
     Inputs are tensors on the model's device. Returns a dict with
     pose3d_rootrel (mm), pose2d_px, and pose3d_abs (mm, camera frame) when
-    reconstruction is on.
+    reconstruction is on. With `model_class="twofive"` (the 2.5D baseline)
+    it returns pose25d (x, y crop px; z mm) and pose2d_px and reconstructs
+    nothing: root-relative metric coordinates need a known root depth
+    (`models.metro.twofive_backproject`). `model.matmul_precision` takes
+    effect here, for the whole process.
     """
-    if cfg.model.model_class != "metro":
-        raise NotImplementedError(f"model_class={cfg.model.model_class!r} is not ported yet")
+    apply_matmul_precision(cfg)
     mcfg = cfg.model
+    is_twofive = mcfg.model_class == "twofive"
+    decode = get_decoder(mcfg)
     flip_tta = cfg.eval.flip_tta if flip_tta is None else flip_tta
     reconstruct = cfg.eval.reconstruct_absolute if reconstruct is None else reconstruct
     weak = cfg.eval.reconstruction == "weak"
@@ -69,13 +76,18 @@ def make_predict_fn(
         b = crops_norm.shape[0]
         if flip_tta:
             both = torch.cat([crops_norm, flip_crop(crops_norm)], dim=0)
-            p3, p2 = decode_metro(*model(both), mcfg)
-            p3_m = unflip_pose3d(p3[b:], c["mirror"])
+            p3, p2 = decode(*model(both), mcfg)
+            if is_twofive:
+                p3_m = unflip_pose25d(p3[b:], c["mirror"], mcfg.proc_side)
+            else:
+                p3_m = unflip_pose3d(p3[b:], c["mirror"])
             p2_m = unflip_pose2d(p2[b:], c["mirror"], mcfg.proc_side)
             pose3d = 0.5 * (p3[:b] + p3_m)
             pose2d = 0.5 * (p2[:b] + p2_m)
         else:
-            pose3d, pose2d = decode_metro(*model(crops_norm), mcfg)
+            pose3d, pose2d = decode(*model(crops_norm), mcfg)
+        if is_twofive:
+            return {"pose25d": pose3d, "pose2d_px": pose2d}
 
         pose3d_rel = root_relative(pose3d, root_index)
         if use_bones:

@@ -8,7 +8,8 @@ import math
 
 import torch
 
-from metro_pose3d_tpu.config import ModelConfig
+from metro_pose3d_tpu_torch.config import ModelConfig
+from metro_pose3d_tpu_torch.device import resolve_device
 from metro_pose3d_tpu_torch.models.metro import MetroModel
 from metro_pose3d_tpu_torch.models.resnet import Conv
 
@@ -17,10 +18,12 @@ from metro_pose3d_tpu_torch.models.resnet import Conv
 _TRUNC_STD = 0.87962566103423978
 
 
-def init_metro_model(cfg: ModelConfig, seed: int, device="cpu", train: bool = False) -> MetroModel:
+def init_metro_model(cfg: ModelConfig, seed: int, device=None, train: bool = False) -> MetroModel:
     """A `MetroModel` with float32 weights drawn on the CPU from `seed`, moved
-    to `device`; built at the train phase and in train mode with `train=True`,
+    to `device` (default: the card; a RuntimeError where CUDA is absent);
+    built at the train phase and in train mode with `train=True`,
     else at the test phase in eval mode."""
+    device = resolve_device(device)
     model = MetroModel(cfg, train=train)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():

@@ -35,17 +35,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 LIB_NAME = "libmetro_kernels.so"
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # x, y, dtype, B, H, W, C, OH, OW, pad_top, pad_left, stream
-    "metro_maxpool3x3s2_same": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
-    # x, g, dx, dtype, B, H, W, C, OH, OW, pad_top, pad_left, stream
-    "metro_maxpool3x3s2_same_bwd": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    # x, y, dtype, B, H, W, C, OH, OW, pad_top, pad_left, fill, stream
+    "metro_maxpool3x3s2": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
+    # x, g, dx, dtype, B, H, W, C, OH, OW, pad_top, pad_left, fill, stream
+    "metro_maxpool3x3s2_bwd": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
     # crops, bank, idx, affine, enabled, out, B, N, T, S, stream
     "metro_occluder_paste": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     # src, params, src_idx, out, B, N, TH, TW, S, stream
     "metro_warp_crop": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # the probes (csrc/probes.cu): x, idx, out, B, H, W, axis, stream
+    "metro_probe_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # x, idx, out, B, H, W, reps, stream
+    "metro_probe_lane_loop": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # p, s, out, B, R, K, N, reps, stream
+    "metro_probe_rowsel": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # x, shift, out, B, H, W, reps, stream
+    "metro_probe_roll": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # x, start, out, B, H, W, R, reps, stream
+    "metro_probe_dynslice": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }
 
 _lock = threading.Lock()

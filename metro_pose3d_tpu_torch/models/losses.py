@@ -9,14 +9,17 @@ L1 plus 2D L1, masked per joint and per example for mixed 2D/3D batches.
   * With `train.absloss_weight > 0`: L1 of the absolute pose reconstructed
     from the two heads and the crop intrinsics, against the camera-frame
     ground truth, in metres.
+  * `model_class="twofive"` (the 2.5D baseline): the 3D term is instead the
+    L1 of x, y in crop pixels / `proc_side` plus the L1 of root-relative z /
+    `box_size_mm`, the z term's root row multiplied by 0; no absolute loss.
 Each term is a validity-weighted mean, safe when the mask is empty.
 """
 from __future__ import annotations
 
 import torch
 
-from metro_pose3d_tpu.config import Config
-from metro_pose3d_tpu_torch.models.metro import decode_metro
+from metro_pose3d_tpu_torch.config import Config
+from metro_pose3d_tpu_torch.models.metro import get_decoder
 from metro_pose3d_tpu_torch.ops.decode import root_relative
 from metro_pose3d_tpu_torch.ops.pose3d import reconstruct_absolute
 
@@ -32,8 +35,6 @@ def compute_losses(logits3d, logits2d, batch, cfg: Config, root_index: int = 0):
     [B,J,2] px, joint_validity [B,J], joint_validity_2d [B,J], is_3d [B],
     and intrinsics [B,3,3] when the absolute loss is on."""
     mcfg = cfg.model
-    if mcfg.model_class != "metro":
-        raise NotImplementedError(f"model_class={mcfg.model_class!r} is not ported yet")
     gt3d = batch["coords3d_true"].float()
     gt2d = batch["coords2d_true"].float()
     valid3d = batch["joint_validity"].float()
@@ -42,17 +43,27 @@ def compute_losses(logits3d, logits2d, batch, cfg: Config, root_index: int = 0):
     root_mask = torch.ones(gt3d.shape[1], device=gt3d.device)
     root_mask[root_index] = 0.0
 
-    pose3d_mm, pose2d_px = decode_metro(logits3d, logits2d, mcfg)
-    rel_pred = root_relative(pose3d_mm, root_index)
-    rel_gt = root_relative(gt3d, root_index)
-    err3d = (rel_pred - rel_gt).abs().mean(-1) * root_mask  # [B, J] mm
-    loss3d = _masked_mean(err3d, valid3d * is3d) / 1000.0
+    metro = mcfg.model_class == "metro"
+    pose, pose2d_px = get_decoder(mcfg)(logits3d, logits2d, mcfg)
+    if metro:
+        rel_pred = root_relative(pose, root_index)
+        rel_gt = root_relative(gt3d, root_index)
+        err3d = (rel_pred - rel_gt).abs().mean(-1) * root_mask  # [B, J] mm
+        loss3d = _masked_mean(err3d, valid3d * is3d) / 1000.0
+    else:  # the 2.5D image-aligned baseline
+        pose25d = pose  # x, y crop px; z mm
+        root = slice(root_index, root_index + 1)
+        gt_z = (gt3d[..., 2] - gt3d[..., root, 2]) / mcfg.box_size_mm
+        pred_z = (pose25d[..., 2] - pose25d[..., root, 2]) / mcfg.box_size_mm
+        err = ((pose25d[..., :2] / mcfg.proc_side - gt2d / mcfg.proc_side).abs().mean(-1)
+               + (pred_z - gt_z).abs() * root_mask)
+        loss3d = _masked_mean(err, valid3d * is3d)
     err2d = (pose2d_px - gt2d).abs().mean(-1) / mcfg.proc_side
     loss2d = _masked_mean(err2d, valid2d)
 
     total = loss3d + cfg.train.loss_2d_weight * loss2d
     parts = {"loss3d": loss3d, "loss2d": loss2d}
-    if cfg.train.absloss_weight > 0:
+    if cfg.train.absloss_weight > 0 and metro:
         abs_pred = reconstruct_absolute(rel_pred, pose2d_px, batch["intrinsics"].float())
         err_abs = (abs_pred - gt3d).abs().mean(-1)
         parts["loss_abs"] = _masked_mean(err_abs, valid3d * is3d) / 1000.0

@@ -4,13 +4,16 @@
     crops [B,S,S,3] -> ResNet /16 dilated -> feats [B,C,h,w]
     -> 1x1 conv -> [B,h,w,J*D] -> reshape [B,h,w,D,J]    (3D head)
     -> 1x1 conv -> [B,h,w,J]                             (2D head)
+
+`model_class="twofive"` is the 2.5D baseline: the same backbone and heads,
+decoded as crop pixels (x, y) and metric depth (z) by `decode_twofive`.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from metro_pose3d_tpu.config import ModelConfig
+from metro_pose3d_tpu_torch.config import ModelConfig
 from metro_pose3d_tpu_torch.models.resnet import Conv, ResNet
 from metro_pose3d_tpu_torch.ops.decode import heatmap_to_image, heatmap_to_metric
 from metro_pose3d_tpu_torch.ops.soft_argmax import soft_argmax_2d, soft_argmax_3d
@@ -27,8 +30,8 @@ class MetroModel(nn.Module):
     def __init__(self, cfg: ModelConfig, train: bool = False):
         super().__init__()
         cfg = cfg.at_phase(train=train)
-        if cfg.model_class != "metro":
-            raise NotImplementedError(f"model_class={cfg.model_class!r} is not ported yet")
+        if cfg.model_class not in DECODERS:
+            raise ValueError(f"model_class {cfg.model_class!r} not in {sorted(DECODERS)}")
         if cfg.compute_dtype not in DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r} not in {sorted(DTYPES)}")
         self.cfg = cfg
@@ -57,3 +60,35 @@ def decode_metro(logits3d, logits2d, cfg: ModelConfig):
     pose3d_mm = heatmap_to_metric(soft_argmax_3d(logits3d), cfg.box_size_mm)
     pose2d_px = heatmap_to_image(soft_argmax_2d(logits2d), cfg.proc_side)
     return pose3d_mm, pose2d_px
+
+
+def decode_twofive(logits3d, logits2d, cfg: ModelConfig):
+    """2.5D baseline decode -> (pose25d [B,J,3]: x, y crop pixels and z metric
+    mm, pose2d_px [B,J,2]). The volume's x and y axes are image-aligned, so
+    the result depends on the person's scale in the crop."""
+    coords3d = soft_argmax_3d(logits3d)
+    xy_px = heatmap_to_image(coords3d[..., :2], cfg.proc_side)
+    z_mm = (coords3d[..., 2:] - 0.5) * cfg.box_size_mm
+    pose2d_px = heatmap_to_image(soft_argmax_2d(logits2d), cfg.proc_side)
+    return torch.cat([xy_px, z_mm], dim=-1), pose2d_px
+
+
+DECODERS = {"metro": decode_metro, "twofive": decode_twofive}
+
+
+def get_decoder(cfg: ModelConfig):
+    return DECODERS[cfg.model_class]
+
+
+def twofive_backproject(pose25d, intrinsics, root_depth_mm):
+    """Lift the 2.5D baseline's (u, v, z_rel) [B,J,3] to camera-frame mm with
+    the crop intrinsics [B,3,3] and the person's root depth [B]: the
+    dependence on distance that the metric volume removes."""
+    z_abs = pose25d[..., 2:] + root_depth_mm[..., None, None]
+    fx = intrinsics[:, 0, 0][:, None, None]
+    fy = intrinsics[:, 1, 1][:, None, None]
+    cx = intrinsics[:, 0, 2][:, None, None]
+    cy = intrinsics[:, 1, 2][:, None, None]
+    x = (pose25d[..., 0:1] - cx) / fx * z_abs
+    y = (pose25d[..., 1:2] - cy) / fy * z_abs
+    return torch.cat([x, y, z_abs], dim=-1)

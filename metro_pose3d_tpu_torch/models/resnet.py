@@ -1,18 +1,27 @@
-"""ResNet v2 (pre-activation) backbone with a dilated final stage.
+"""ResNet backbone with a dilated final stage: v2 (pre-activation) or v1.5,
+bottleneck or basic blocks, in three padding conventions.
 
-Port of `metro_pose3d_tpu/models/resnet.py` for bottleneck variants
-(resnet50/101/152, tiny), `conv_padding="same"`, `preactivation=True`,
-either `stride_position`. Parameters are float32 and cast to the compute
-dtype inside each op, as flax does with `param_dtype=float32`; batch norm
-follows `module.train()` / `.eval()`.
-Module and parameter names follow the flax tree (`conv_stem`,
-`stage{s}_block{i}.{bn_pre,proj,conv1..3,bn1,bn2}`, `bn_final`), so a flax
-checkpoint converts by name (`metro_pose3d_tpu_torch/convert.py`).
+Port of `metro_pose3d_tpu/models/resnet.py`: resnet50/101/152 and tiny
+(bottleneck), resnet18/34 (basic block); `preactivation` True (v2) or False
+(v1.5: `bn_stem` + ReLU before the pool, BN after every conv, ReLU after
+the add, no `bn_final`); `conv_padding` "same" | "torch" | "keras"; either
+`stride_position`; `v2_biases` (bias on the stem and on the convs that no BN
+follows). The space-to-depth stem and the int8 path are not ported.
+Parameters are float32 and cast to the compute dtype inside each op, as
+flax does with `param_dtype=float32`; batch norm follows `module.train()` /
+`.eval()`.
+Module and parameter names follow the flax tree (`conv_stem`, `bn_stem`,
+`stage{s}_block{i}.{bn_pre,proj,bn_proj,conv1..3,bn1..3}`, `bn_final`), so a
+flax checkpoint converts by name (`metro_pose3d_tpu_torch/convert.py`).
 
 Tensors are NCHW in `torch.channels_last` memory format (NHWC in memory).
-Convolutions pad like XLA "SAME": for stride 2 the pad is uneven (7x7/2:
-2 low, 3 high; 3x3/2 on even inputs: 0 low, 1 high), which torch's
-`padding="same"` refuses, so those convs pad explicitly first.
+With "same", convolutions pad like XLA "SAME": for stride 2 the pad is
+uneven (7x7/2: 2 low, 3 high; 3x3/2 on even inputs: 0 low, 1 high), which
+torch's `padding="same"` refuses, so those convs pad explicitly first. With
+"torch" or "keras" a strided conv with k > 1 pads (k-1)//2 * dilation on both
+sides, as torchvision and Keras do, which shifts its output grid by one
+pixel; the stem pool follows with the window of the same name
+(`ops/pool.py`). The two differ only in the pool's pad value.
 """
 from __future__ import annotations
 
@@ -20,15 +29,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from metro_pose3d_tpu.config import ModelConfig
+from metro_pose3d_tpu_torch.config import ModelConfig
 from metro_pose3d_tpu_torch.ops.pool import stem_max_pool
 
 RESNET_DEPTHS = {
     "resnet50": (3, 4, 6, 3),
     "resnet101": (3, 4, 23, 3),
     "resnet152": (3, 8, 36, 3),
+    "resnet18": (2, 2, 2, 2),
+    "resnet34": (3, 4, 6, 3),
     "tiny": (1, 1, 1, 1),  # for tests
 }
+# Backbones that use the basic (two 3x3) block instead of the bottleneck.
+BASIC_BLOCK = {"resnet18", "resnet34"}
+CONV_PADDINGS = ("same", "torch", "keras")
 BASE_WIDTHS = {"tiny": 8}  # default 64
 
 
@@ -41,19 +55,26 @@ def _same_pads(size: int, k: int, stride: int, dilation: int):
 
 
 class Conv(nn.Module):
-    """Square convolution with XLA SAME padding (flax `nn.Conv` semantics):
-    float32 `weight` and `bias`, cast to the compute dtype in `forward`."""
+    """Square convolution (flax `nn.Conv` semantics): float32 `weight` and
+    `bias`, cast to the compute dtype in `forward`. Padding is XLA SAME,
+    except that with `conv_padding` "torch" or "keras" a strided conv with
+    k > 1 pads (k-1)//2 * dilation on both sides (`_conv_pad` in the JAX
+    package)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
-                 bias: bool = False, dtype=torch.float32):
+                 bias: bool = False, dtype=torch.float32, conv_padding: str = "same"):
         super().__init__()
         self.k, self.stride, self.dilation, self.dtype = k, stride, dilation, dtype
+        self.symmetric = conv_padding in ("torch", "keras") and stride > 1 and k > 1
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
         weight = self.weight.to(self.dtype)
         bias = None if self.bias is None else self.bias.to(self.dtype)
+        if self.symmetric:
+            pad = (self.k - 1) // 2 * self.dilation
+            return F.conv2d(x, weight, bias, self.stride, pad, self.dilation)
         top, bottom = _same_pads(x.shape[2], self.k, self.stride, self.dilation)
         left, right = _same_pads(x.shape[3], self.k, self.stride, self.dilation)
         if (top, left) == (bottom, right):
@@ -126,56 +147,98 @@ class BatchNorm(nn.Module):
         return y, full_mean, gmean2.mean(dim=0) - full_mean * full_mean
 
 
+def _shortcut(x, strides: int):
+    """A strided unit that keeps its width subsamples, it does not project."""
+    return x if strides == 1 else x[:, :, ::strides, ::strides]
+
+
 class Bottleneck(nn.Module):
-    """Pre-activation bottleneck unit (ResNet v2)."""
+    """Bottleneck unit: pre-activation (ResNet v2) or post-activation (v1.5)."""
 
     def __init__(self, cin: int, features: int, strides: int, dilation: int,
-                 bn: dict, dtype):
+                 bn: dict, dtype, preact: bool = True, conv_padding: str = "same",
+                 v2_biases: bool = False):
         super().__init__()
         out = features * 4
-        self.strides = strides
+        self.out_channels = out
+        self.strides, self.preact = strides, preact
         self.change = cin != out
-        self.bn_pre = BatchNorm(cin, **bn, dtype=dtype)
+        conv = dict(dtype=dtype, conv_padding=conv_padding)
+        if preact:
+            self.bn_pre = BatchNorm(cin, **bn, dtype=dtype)
         if self.change:
-            self.proj = Conv(cin, out, 1, strides, dtype=dtype)
-        self.conv1 = Conv(cin, features, 1, dtype=dtype)
+            self.proj = Conv(cin, out, 1, strides, bias=preact and v2_biases, **conv)
+            if not preact:
+                self.bn_proj = BatchNorm(out, **bn, dtype=dtype)
+        self.conv1 = Conv(cin, features, 1, **conv)
         self.bn1 = BatchNorm(features, **bn, dtype=dtype)
-        self.conv2 = Conv(features, features, 3, strides, dilation, dtype=dtype)
+        self.conv2 = Conv(features, features, 3, strides, dilation, **conv)
         self.bn2 = BatchNorm(features, **bn, dtype=dtype)
-        self.conv3 = Conv(features, out, 1, dtype=dtype)
+        self.conv3 = Conv(features, out, 1, bias=preact and v2_biases, **conv)
+        if not preact:
+            self.bn3 = BatchNorm(out, **bn, dtype=dtype)
 
     def forward(self, x):
-        h = F.relu(self.bn_pre(x))
-        if self.change:
-            shortcut = self.proj(h)
-        elif self.strides != 1:
-            # a strided unit that keeps its width subsamples, it does not project
-            shortcut = x[:, :, :: self.strides, :: self.strides]
-        else:
-            shortcut = x
-        h = F.relu(self.bn1(self.conv1(h)))
+        if self.preact:
+            h = F.relu(self.bn_pre(x))
+            shortcut = self.proj(h) if self.change else _shortcut(x, self.strides)
+            h = F.relu(self.bn1(self.conv1(h)))
+            h = F.relu(self.bn2(self.conv2(h)))
+            return shortcut + self.conv3(h)
+        shortcut = self.bn_proj(self.proj(x)) if self.change else _shortcut(x, self.strides)
+        h = F.relu(self.bn1(self.conv1(x)))
         h = F.relu(self.bn2(self.conv2(h)))
-        return shortcut + self.conv3(h)
+        h = self.bn3(self.conv3(h))
+        return F.relu(shortcut + h)
+
+
+class BasicBlock(nn.Module):
+    """Basic unit (two 3x3 convs) of resnet18/34, pre- or post-activation."""
+
+    def __init__(self, cin: int, features: int, strides: int, dilation: int,
+                 bn: dict, dtype, preact: bool = True, conv_padding: str = "same",
+                 v2_biases: bool = False):
+        super().__init__()
+        self.out_channels = features
+        self.strides, self.preact = strides, preact
+        self.change = cin != features
+        conv = dict(dtype=dtype, conv_padding=conv_padding)
+        if preact:
+            self.bn_pre = BatchNorm(cin, **bn, dtype=dtype)
+        if self.change:
+            self.proj = Conv(cin, features, 1, strides, bias=preact and v2_biases, **conv)
+            if not preact:
+                self.bn_proj = BatchNorm(features, **bn, dtype=dtype)
+        self.conv1 = Conv(cin, features, 3, strides, dilation, **conv)
+        self.bn1 = BatchNorm(features, **bn, dtype=dtype)
+        self.conv2 = Conv(features, features, 3, 1, dilation, bias=preact and v2_biases, **conv)
+        if not preact:
+            self.bn2 = BatchNorm(features, **bn, dtype=dtype)
+
+    def forward(self, x):
+        if self.preact:
+            h = F.relu(self.bn_pre(x))
+            shortcut = self.proj(h) if self.change else _shortcut(x, self.strides)
+            h = F.relu(self.bn1(self.conv1(h)))
+            return shortcut + self.conv2(h)
+        shortcut = self.bn_proj(self.proj(x)) if self.change else _shortcut(x, self.strides)
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = self.bn2(self.conv2(h))
+        return F.relu(shortcut + h)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    unported = {
-        "conv_padding": (cfg.conv_padding, "same"),
-        "preactivation": (cfg.preactivation, True),
-        "v2_biases": (cfg.v2_biases, False),
-        "quantize": (cfg.quantize, "none"),
-    }
-    for name, (value, ported) in unported.items():
-        if value != ported:
-            raise NotImplementedError(f"model.{name}={value!r} is not ported yet")
-    if cfg.backbone not in RESNET_DEPTHS:
+    if cfg.quantize != "none":
         raise NotImplementedError(
-            f"backbone {cfg.backbone!r} is not ported yet (basic-block variants "
-            f"resnet18/34 wait); ported: {sorted(RESNET_DEPTHS)}")
+            f"model.quantize={cfg.quantize!r} is not ported (the int8 inference path)")
+    if cfg.backbone not in RESNET_DEPTHS:
+        raise ValueError(f"unknown backbone {cfg.backbone!r}; known: {sorted(RESNET_DEPTHS)}")
+    if cfg.conv_padding not in CONV_PADDINGS:
+        raise ValueError(f"unknown conv_padding {cfg.conv_padding!r}; known: {CONV_PADDINGS}")
 
 
 class ResNet(nn.Module):
-    """Fully convolutional pre-activation ResNet trunk: [B,3,S,S] -> features."""
+    """Fully convolutional ResNet trunk: [B,3,S,S] -> features."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
@@ -184,8 +247,14 @@ class ResNet(nn.Module):
         base = BASE_WIDTHS.get(cfg.backbone, 64)
         bn = {"eps": cfg.bn_epsilon, "momentum": cfg.bn_momentum,
               "group_size": cfg.bn_group_size}
-        self.dtype = dtype
-        self.conv_stem = Conv(3, base, 7, 2, dtype=dtype)
+        block_cls = BasicBlock if cfg.backbone in BASIC_BLOCK else Bottleneck
+        self.dtype, self.preact = dtype, cfg.preactivation
+        # the pool's alignment follows the convs' padding
+        self.pool_mode = cfg.conv_padding
+        self.conv_stem = Conv(3, base, 7, 2, bias=cfg.v2_biases, dtype=dtype,
+                              conv_padding=cfg.conv_padding)
+        if not self.preact:
+            self.bn_stem = BatchNorm(base, **bn, dtype=dtype)
 
         # Stage strides for the output stride: once the cumulative stride
         # reaches it, later stages dilate instead. With "last" (TF slim v2)
@@ -213,16 +282,21 @@ class ResNet(nn.Module):
             strided_unit = n_blocks - 1 if last_pos else 0
             for i in range(n_blocks):
                 name = f"stage{stage + 1}_block{i + 1}"
-                block = Bottleneck(cin, features, stage_stride if i == strided_unit else 1,
-                                   stage_dil, bn, dtype)
+                block = block_cls(cin, features, stage_stride if i == strided_unit else 1,
+                                  stage_dil, bn, dtype, preact=self.preact,
+                                  conv_padding=cfg.conv_padding, v2_biases=cfg.v2_biases)
                 self.add_module(name, block)
                 self.blocks.append(name)
-                cin = features * 4
-        self.bn_final = BatchNorm(cin, **bn, dtype=dtype)
+                cin = block.out_channels
+        if self.preact:  # v2: final BN + ReLU
+            self.bn_final = BatchNorm(cin, **bn, dtype=dtype)
         self.out_channels = cin
 
     def forward(self, x):
-        x = stem_max_pool(self.conv_stem(x.to(self.dtype)))
+        x = self.conv_stem(x.to(self.dtype))
+        if not self.preact:
+            x = F.relu(self.bn_stem(x))
+        x = stem_max_pool(x, self.pool_mode)
         for name in self.blocks:
             x = getattr(self, name)(x)
-        return F.relu(self.bn_final(x))
+        return F.relu(self.bn_final(x)) if self.preact else x

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from metro_pose3d_tpu import reference_constants as C
+from metro_pose3d_tpu_torch import reference_constants as C
 
 # Rec.601 luma
 _LUMA = (0.299, 0.587, 0.114)

@@ -1,23 +1,32 @@
-"""3x3 stride-2 SAME max pool (the ResNet stem pool): CUDA kernel + plain version.
+"""3x3 stride-2 max pool (the ResNet stem pool) in three alignments: CUDA
+kernels + plain version.
 
-Semantics match TF/XLA "SAME" (`metro_pose3d_tpu/ops/pool_pallas.py`):
-output (i, j) is the max over input rows and columns 2i..2i+2 (for even
-sizes; the pad is on the high side only), with -inf outside. For odd sizes
-the pad splits as XLA splits it, lo = total // 2, like
-`_maxpool_reference_odd`.
+`mode` follows `model.conv_padding` (`metro_pose3d_tpu/ops/pool_pallas.py`):
 
-Trap: `F.max_pool2d(x, 3, 2, padding=1)` pads symmetrically, which puts the
-window at 2i-1..2i+1, one pixel off SAME.
+  same   TF/XLA "SAME": output (i, j) is the max over input rows and columns
+         2i..2i+2 for even sizes (the pad is on the high side only), with
+         -inf outside. For odd sizes the pad splits as XLA splits it,
+         lo = total // 2, like `_maxpool_reference_odd`.
+  torch  `MaxPool2d(3, 2, 1)`: symmetric pad 1 of -inf, the window at
+         2i-1..2i+1, one pixel off SAME. What a torchvision backbone needs.
+  keras  the torch window, but the pad is an explicit 0.0 that takes part in
+         the max (`ZeroPadding2D` + a valid pool): a border window whose real
+         values are all negative returns 0. Only the pad cells are 0; the
+         reduction is not seeded with 0, so an interior window keeps its
+         negative max. What a Keras ResNet-v2 backbone needs.
 
 Tensors are NCHW; the kernels take them in `torch.channels_last` memory
 format (NHWC in memory), the layout the backbone runs in.
 
 Gradient: JAX training differentiates the shift-and-max chain
-(`stem_max_pool(train=True)` -> `_maxpool_reference[_odd]`), and so does
-autograd through `max_pool_plain`: `torch.maximum` splits a tie 0.5/0.5 as
-`lax.max` does. On CUDA tensors `stem_max_pool` is an autograd Function
-whose backward is a kernel too (csrc/maxpool_same_bwd.cu), with the same
-tie rule.
+(`stem_max_pool(mode, train=True)` -> `_maxpool_reference[_odd|_torch|_keras]`),
+and so does autograd through `max_pool_plain`: `torch.maximum` splits a tie
+0.5/0.5 as `lax.max` does. A pad cell is a link of that chain: in `keras`
+mode a 0 pad that wins or ties keeps its share of the gradient, which is
+dropped with the pad. On CUDA tensors `stem_max_pool` is an autograd
+Function whose backward is a kernel too (csrc/maxpool3x3s2_bwd.cu), with
+the same tie rule. `F.max_pool2d` is used nowhere: its backward hands the
+whole gradient to one argmax, which is another function.
 """
 from __future__ import annotations
 
@@ -26,17 +35,40 @@ import torch.nn.functional as F
 
 from metro_pose3d_tpu_torch.kernels import build
 
-LAUNCHES = 0  # forward kernel launches by `stem_max_pool` on CUDA tensors
-BWD_LAUNCHES = 0  # backward kernel launches, from its gradient on CUDA tensors
+MODES = ("same", "torch", "keras")
+# kernel launches on CUDA tensors by mode: forward by `stem_max_pool`, backward
+# from its gradient. `LAUNCHES` and `BWD_LAUNCHES` read as their sums.
+MODE_LAUNCHES = dict.fromkeys(MODES, 0)
+MODE_BWD_LAUNCHES = dict.fromkeys(MODES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _same_geometry(h: int, w: int):
-    """(out_h, out_w, (top, bottom), (left, right)) of the SAME 3x3/2 window."""
+def __getattr__(name: str) -> int:
+    totals = {"LAUNCHES": MODE_LAUNCHES, "BWD_LAUNCHES": MODE_BWD_LAUNCHES}
+    if name in totals:
+        return sum(totals[name].values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def reset_launches() -> None:
+    """Set every launch count of this module to 0."""
+    for counts in (MODE_LAUNCHES, MODE_BWD_LAUNCHES):
+        counts.update(dict.fromkeys(MODES, 0))
+
+
+def pool_geometry(h: int, w: int, mode: str = "same"):
+    """(out_h, out_w, (top, bottom), (left, right), fill) of the 3x3/2 window:
+    the pad that the nine shifted views read, and the value of a pad cell."""
+    if mode not in MODES:
+        raise ValueError(f"stem max pool mode {mode!r} not in {MODES}")
     oh, ow = (h + 1) // 2, (w + 1) // 2
     ph, pw = 2 * oh + 1 - h, 2 * ow + 1 - w
-    return oh, ow, (ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2)
+    if mode == "same":
+        return oh, ow, (ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2), float("-inf")
+    # one pad cell on the low side; on the high side one for odd sizes, and
+    # none for even sizes, whose last window ends on the last row
+    return oh, ow, (1, ph - 1), (1, pw - 1), 0.0 if mode == "keras" else float("-inf")
 
 
 def _check(x: torch.Tensor) -> None:
@@ -46,12 +78,12 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError(f"stem max pool takes [B,C,H,W], got {tuple(x.shape)}")
 
 
-def max_pool_plain(x: torch.Tensor) -> torch.Tensor:
-    """Shift-and-max form of the SAME pool, any spatial size, any device."""
+def max_pool_plain(x: torch.Tensor, mode: str = "same") -> torch.Tensor:
+    """Shift-and-max form of the pool, any spatial size, any device."""
     _check(x)
     _, _, h, w = x.shape
-    oh, ow, (top, bottom), (left, right) = _same_geometry(h, w)
-    xp = F.pad(x, (left, right, top, bottom), value=float("-inf"))
+    oh, ow, (top, bottom), (left, right), fill = pool_geometry(h, w, mode)
+    xp = F.pad(x, (left, right, top, bottom), value=fill)
     out = None
     for dy in range(3):
         for dx in range(3):
@@ -60,48 +92,46 @@ def max_pool_plain(x: torch.Tensor) -> torch.Tensor:
     return out.contiguous(memory_format=torch.channels_last)
 
 
-def max_pool_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel (csrc/maxpool_same.cu) on a channels_last tensor."""
-    global LAUNCHES
+def max_pool_cuda(x: torch.Tensor, mode: str = "same") -> torch.Tensor:
+    """Launch the CUDA kernel (csrc/maxpool3x3s2.cu) on a channels_last tensor."""
     if not x.is_cuda:
         raise ValueError(f"max_pool_cuda needs a CUDA tensor, got {x.device}")
     _check(x)
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("max pool kernel takes a channels_last-contiguous tensor")
     b, c, h, w = x.shape
-    oh, ow, (top, _), (left, _) = _same_geometry(h, w)
+    oh, ow, (top, _), (left, _), fill = pool_geometry(h, w, mode)
     y = torch.empty((b, c, oh, ow), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     lib = build.load()
     with torch.cuda.device(x.device):
-        err = lib.metro_maxpool3x3s2_same(
-            x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, h, w, c, oh, ow, top, left,
+        err = lib.metro_maxpool3x3s2(
+            x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, h, w, c, oh, ow, top, left, fill,
             torch.cuda.current_stream().cuda_stream)
-    build.check(err, "metro_maxpool3x3s2_same")
-    LAUNCHES += 1
+    build.check(err, "metro_maxpool3x3s2")
+    MODE_LAUNCHES[mode] += 1
     return y
 
 
-def max_pool_bwd_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def max_pool_bwd_plain(x: torch.Tensor, g: torch.Tensor, mode: str = "same") -> torch.Tensor:
     """Gradient of `max_pool_plain` at x for the output gradient g, by
     autograd through the shift-and-max chain (the reference gradient)."""
     with torch.enable_grad():
         xr = x.detach().requires_grad_(True)
-        (dx,) = torch.autograd.grad(max_pool_plain(xr), xr, g)
+        (dx,) = torch.autograd.grad(max_pool_plain(xr, mode), xr, g)
     return dx.contiguous(memory_format=torch.channels_last)
 
 
-def max_pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch the backward kernel (csrc/maxpool_same_bwd.cu): dx for x and
+def max_pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor, mode: str = "same") -> torch.Tensor:
+    """Launch the backward kernel (csrc/maxpool3x3s2_bwd.cu): dx for x and
     the output gradient g, channels_last, in x's dtype."""
-    global BWD_LAUNCHES
     if not (x.is_cuda and g.is_cuda):
         raise ValueError(f"max_pool_bwd_cuda needs CUDA tensors, got {x.device}, {g.device}")
     _check(x)
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("max pool kernel takes a channels_last-contiguous tensor")
     b, c, h, w = x.shape
-    oh, ow, (top, _), (left, _) = _same_geometry(h, w)
+    oh, ow, (top, _), (left, _), fill = pool_geometry(h, w, mode)
     if tuple(g.shape) != (b, c, oh, ow) or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"pool gradient {g.dtype} {tuple(g.shape)} does not fit the "
                          f"output {x.dtype} {(b, c, oh, ow)}")
@@ -109,11 +139,11 @@ def max_pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     lib = build.load()
     with torch.cuda.device(x.device):
-        err = lib.metro_maxpool3x3s2_same_bwd(
+        err = lib.metro_maxpool3x3s2_bwd(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), _DTYPES[x.dtype], b, h, w, c, oh, ow,
-            top, left, torch.cuda.current_stream().cuda_stream)
-    build.check(err, "metro_maxpool3x3s2_same_bwd")
-    BWD_LAUNCHES += 1
+            top, left, fill, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "metro_maxpool3x3s2_bwd")
+    MODE_BWD_LAUNCHES[mode] += 1
     return dx
 
 
@@ -121,21 +151,23 @@ class _StemPoolCuda(torch.autograd.Function):
     """The pool on CUDA tensors: forward kernel, backward kernel."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, mode):
         ctx.save_for_backward(x)
-        return max_pool_cuda(x)
+        ctx.mode = mode
+        return max_pool_cuda(x, mode)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return max_pool_bwd_cuda(x, g)
+        return max_pool_bwd_cuda(x, g, ctx.mode), None
 
 
-def stem_max_pool(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable SAME 3x3/2 max pool: the plain version on the CPU, the
-    kernels (forward, and backward under autograd) on CUDA."""
+def stem_max_pool(x: torch.Tensor, mode: str = "same") -> torch.Tensor:
+    """Differentiable 3x3/2 max pool in the alignment `mode` ("same" |
+    "torch" | "keras"): the plain version on the CPU, the kernels (forward,
+    and backward under autograd) on CUDA."""
     if x.device.type == "cpu":
-        return max_pool_plain(x)
+        return max_pool_plain(x, mode)
     if x.is_cuda:
-        return _StemPoolCuda.apply(x)
+        return _StemPoolCuda.apply(x, mode)
     raise ValueError(f"stem_max_pool: unsupported device {x.device}")

@@ -26,3 +26,13 @@ def unflip_pose2d(pose_px: torch.Tensor, mirror_mapping: torch.Tensor,
     x = (proc_side - 1) - pose_px[..., 0]
     flipped = torch.stack([x, pose_px[..., 1]], dim=-1)
     return flipped[..., mirror_mapping, :]
+
+
+def unflip_pose25d(pose25d: torch.Tensor, mirror_mapping: torch.Tensor,
+                   proc_side: int) -> torch.Tensor:
+    """Un-mirror a 2.5D prediction (x, y crop pixels; z metric mm): x is
+    image-aligned, so x -> (S-1) - x as for the 2D head; y and z stay; then
+    the permutation."""
+    x = (proc_side - 1) - pose25d[..., 0]
+    flipped = torch.stack([x, pose25d[..., 1], pose25d[..., 2]], dim=-1)
+    return flipped[..., mirror_mapping, :]

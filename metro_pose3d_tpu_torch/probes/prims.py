@@ -1,0 +1,171 @@
+"""In-kernel primitive probes: each repeats one access pattern `REPS` = 64
+times on a tile held on chip (shared memory here, VMEM on the TPU) and sums.
+
+Counterparts of the Pallas probes in `scripts/exp_pallas_prims.py`:
+
+  lane_loop  `sum_k x[b, i, (idx[b,i,j] + k) % W]`, `[64,H,128]` int32
+             (`build_lane_loop`)
+  rowsel     `sum_k roll(P[b], k, 0) @ S[b]` with P `[64,160]` one-hot bf16,
+             S `[160,128]` bf16, float32 sum (`build_rowsel`); the product is
+             in the kernel's body, a plain loop
+  roll       `sum_k roll(x[b], shift[b] + k, 1)`, `[64,64,512]` int32
+             (`build_roll`)
+  dynslice   `sum_k x[b, (start[b] + k) % 448 : +64]` from `[64,512,128]`
+             int32 (`build_dynslice`)
+
+All are exact: integer sums, and one-hot rows times integers below 256
+summed in float32.
+
+    python -m metro_pose3d_tpu_torch.probes.prims
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from metro_pose3d_tpu_torch.kernels import build
+from metro_pose3d_tpu_torch.probes import check_cuda, time_ms
+
+REPS = 64
+B = 64
+LAUNCHES = dict.fromkeys(("lane_loop", "rowsel", "roll", "dynslice"), 0)  # kernel launches
+
+
+def _launch(name: str, fn_name: str, out: torch.Tensor, *args) -> torch.Tensor:
+    lib = build.load()
+    with torch.cuda.device(out.device):
+        err = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream)
+    build.check(err, fn_name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def lane_loop_plain(x: torch.Tensor, idx: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    w = x.shape[2]
+    acc = torch.zeros_like(x)
+    for k in range(reps):
+        acc += torch.take_along_dim(x, ((idx + k) % w).long(), dim=2)
+    return acc
+
+
+def lane_loop_cuda(x: torch.Tensor, idx: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    check_cuda("lane_loop_cuda", x, idx, dtypes=(torch.int32, torch.int32))
+    if x.dim() != 3 or idx.shape != x.shape or x.shape[2] > 256:
+        raise ValueError(f"lane_loop_cuda takes x and idx [B,H,W<=256], got {tuple(x.shape)}, "
+                         f"{tuple(idx.shape)}")
+    out = torch.empty_like(x)
+    b, h, w = x.shape
+    return _launch("lane_loop", "metro_probe_lane_loop", out, x.data_ptr(), idx.data_ptr(),
+                   out.data_ptr(), b, h, w, reps)
+
+
+def rowsel_plain(p: torch.Tensor, s: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    """p [B,R,K] one-hot bf16, s [B,K,N] bf16 -> [B,R,N] float32."""
+    acc = torch.zeros(p.shape[0], p.shape[1], s.shape[2], dtype=torch.float32, device=p.device)
+    pf, sf = p.float(), s.float()
+    for k in range(reps):
+        acc += torch.roll(pf, k, 1) @ sf
+    return acc
+
+
+def rowsel_cuda(p: torch.Tensor, s: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    check_cuda("rowsel_cuda", p, s, dtypes=(torch.bfloat16, torch.bfloat16))
+    if (p.dim() != 3 or s.dim() != 3 or p.shape[0] != s.shape[0] or p.shape[2] != 160
+            or tuple(s.shape[1:]) != (160, 128)):
+        raise ValueError(f"rowsel_cuda takes p [B,R,160] and s [B,160,128], got "
+                         f"{tuple(p.shape)}, {tuple(s.shape)}")
+    b, r, k = p.shape
+    out = torch.empty((b, r, 128), dtype=torch.float32, device=p.device)
+    return _launch("rowsel", "metro_probe_rowsel", out, p.data_ptr(), s.data_ptr(),
+                   out.data_ptr(), b, r, k, 128, reps)
+
+
+def roll_plain(x: torch.Tensor, shift: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    """x [B,H,W] int32, shift [B] int32: sum_k roll(x[b], shift[b] + k, columns)."""
+    w = x.shape[2]
+    cols = torch.arange(w, device=x.device)
+    acc = torch.zeros_like(x)
+    for k in range(reps):
+        src = (cols[None, :] - shift[:, None].long() - k) % w  # [B, W]
+        acc += torch.take_along_dim(x, src[:, None, :].expand_as(x), dim=2)
+    return acc
+
+
+def roll_cuda(x: torch.Tensor, shift: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    check_cuda("roll_cuda", x, shift, dtypes=(torch.int32, torch.int32))
+    if x.dim() != 3 or tuple(shift.shape) != (x.shape[0],) or x.shape[2] > 512:
+        raise ValueError(f"roll_cuda takes x [B,H,W<=512] and shift [B], got {tuple(x.shape)}, "
+                         f"{tuple(shift.shape)}")
+    out = torch.empty_like(x)
+    b, h, w = x.shape
+    return _launch("roll", "metro_probe_roll", out, x.data_ptr(), shift.data_ptr(),
+                   out.data_ptr(), b, h, w, reps)
+
+
+def dynslice_plain(x: torch.Tensor, start: torch.Tensor, rows: int = 64,
+                   reps: int = REPS) -> torch.Tensor:
+    """x [B,H,W] int32, start [B] int32 -> [B,rows,W]:
+    sum_k x[b, (start[b] + k) % (H - rows) : + rows]."""
+    b, h, w = x.shape
+    r = torch.arange(rows, device=x.device)
+    acc = torch.zeros((b, rows, w), dtype=x.dtype, device=x.device)
+    for k in range(reps):
+        src = ((start.long() + k) % (h - rows))[:, None] + r[None, :]  # [B, rows]
+        acc += torch.take_along_dim(x, src[:, :, None].expand(b, rows, w), dim=1)
+    return acc
+
+
+def dynslice_cuda(x: torch.Tensor, start: torch.Tensor, rows: int = 64,
+                  reps: int = REPS) -> torch.Tensor:
+    check_cuda("dynslice_cuda", x, start, dtypes=(torch.int32, torch.int32))
+    if (x.dim() != 3 or tuple(start.shape) != (x.shape[0],) or x.shape[1] > 512
+            or not 0 < rows < x.shape[1]):
+        raise ValueError(f"dynslice_cuda takes x [B,H<=512,W], start [B] and 0 < rows < H, got "
+                         f"{tuple(x.shape)}, {tuple(start.shape)}, rows {rows}")
+    b, h, w = x.shape
+    out = torch.empty((b, rows, w), dtype=x.dtype, device=x.device)
+    return _launch("dynslice", "metro_probe_dynslice", out, x.data_ptr(), start.data_ptr(),
+                   out.data_ptr(), b, h, w, rows, reps)
+
+
+def make_cases(seed: int = 0, device="cpu", b: int = B) -> dict:
+    """name -> (cuda fn, plain fn, args, elements of work), inputs drawn as the
+    script draws them."""
+    rng = np.random.RandomState(seed)
+
+    def i32(lo, hi, shape):
+        return torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int32)).to(device)
+
+    cases = {}
+    for h in (128, 256, 8):
+        cases[f"lane gather x{REPS} [{h},128] i32"] = (
+            lane_loop_cuda, lane_loop_plain, (i32(0, 1000, (b, h, 128)), i32(0, 128, (b, h, 128))),
+            b * h * 128 * REPS)
+    slab = i32(0, 255, (b, 160, 128)).to(torch.bfloat16)
+    onehot = torch.from_numpy(np.eye(160, dtype=np.float32)[rng.randint(0, 160, (b, 64))])
+    cases[f"one-hot rowsel x{REPS} [64,160]@[160,128] bf16"] = (
+        rowsel_cuda, rowsel_plain, (onehot.to(device).to(torch.bfloat16), slab),
+        b * 64 * 128 * REPS)
+    cases[f"dyn roll x{REPS} [64,512] i32"] = (
+        roll_cuda, roll_plain, (i32(0, 1000, (b, 64, 512)), i32(0, 512, (b,))),
+        b * 64 * 512 * REPS)
+    cases[f"dyn row slice x{REPS} [64,128] from [512,128]"] = (
+        dynslice_cuda, dynslice_plain, (i32(0, 1000, (b, 512, 128)), i32(0, 512 - 64, (b,))),
+        b * 64 * 128 * REPS)
+    return cases
+
+
+def main() -> None:
+    from metro_pose3d_tpu_torch.device import resolve_device
+
+    dev = resolve_device(None)
+    for name, (cuda_fn, plain_fn, args, n_work) in make_cases(device=dev).items():
+        out = cuda_fn(*args)
+        ok = torch.equal(out, plain_fn(*args))
+        ms = time_ms(lambda: cuda_fn(*args))
+        print(f"{name}: ok={ok} {ms:8.4f} ms  {n_work / ms / 1e6:7.2f} G/s  "
+              f"(sum={float(out.double().sum()):.3g})")
+
+
+if __name__ == "__main__":
+    main()

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from metro_pose3d_tpu.config import Config
+from metro_pose3d_tpu_torch.config import Config
 from metro_pose3d_tpu_torch.models.losses import compute_losses
 from metro_pose3d_tpu_torch.pipeline.device import device_augment
 

@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from metro_pose3d_tpu.config import Config
+from metro_pose3d_tpu_torch.config import Config
 from metro_pose3d_tpu_torch.init import init_metro_model
 from metro_pose3d_tpu_torch.models.metro import MetroModel
 from metro_pose3d_tpu_torch.train.loop import make_optimizer
@@ -45,14 +45,18 @@ class TrainState:
         self.step = int(d["step"])
 
 
-def create_train_state(cfg: Config, device="cpu", seed: int | None = None) -> TrainState:
+def create_train_state(cfg: Config, device=None, seed: int | None = None) -> TrainState:
     """Seeded random init (`init.py`) of the model at the train phase, in
-    train mode, on `device`, with a fresh Adam state. `seed` defaults to
-    `train.seed`."""
-    if cfg.train.backbone_init:
-        raise NotImplementedError(
-            "train.backbone_init needs the ImageNet backbone converter, which is not "
-            "ported yet")
+    train mode, on `device` (default: the card; a RuntimeError where CUDA is
+    absent), with a fresh Adam state. `seed` defaults to `train.seed`. With
+    `train.backbone_init` the trunk then takes the leaves of that backbone
+    `.npz` (`utils/convert_backbone.py`): the ImageNet warm start."""
     model = init_metro_model(cfg.model, cfg.train.seed if seed is None else seed, device,
                              train=True)
+    if cfg.train.backbone_init:
+        from metro_pose3d_tpu_torch.utils.convert_backbone import (
+            apply_backbone_init, load_backbone_npz,
+        )
+
+        apply_backbone_init(model, load_backbone_npz(cfg.train.backbone_init))
     return TrainState(step=0, model=model, optimizer=make_optimizer(cfg, model))

@@ -22,7 +22,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from metro_pose3d_tpu.config import Config, config_to_json
+from metro_pose3d_tpu_torch.config import Config, apply_matmul_precision, config_to_json
+from metro_pose3d_tpu_torch.device import resolve_device
 from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
 from metro_pose3d_tpu_torch.pipeline.occluders import get_occluder_bank
 from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
@@ -66,13 +67,14 @@ def train(cfg: Config, batches: Iterator[dict], occluder_bank: Optional[np.ndarr
     batches: host batches (numpy, `pipeline/device.py::example_spec` layout
     of the JAX package). occluder_bank: float RGBA [N,T,T,4] in [0, 1]
     (default: `get_occluder_bank(data.occluder_root)`, procedural without
-    VOC). device: default CUDA when present, else the CPU.
+    VOC). device: default the card; a RuntimeError where CUDA is absent.
     """
     t = cfg.train
     total = min(t.num_steps, max_steps or t.num_steps)
     _check_supported(cfg, total)
     batches = iter(batches)
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device)
+    apply_matmul_precision(cfg)
     os.makedirs(t.logdir, exist_ok=True)
     with open(os.path.join(t.logdir, "config.json"), "w") as f:
         f.write(config_to_json(cfg))

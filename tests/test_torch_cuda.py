@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from metro_pose3d_tpu.config import Config, apply_overrides
+from metro_pose3d_tpu_torch.config import Config, apply_overrides
 from metro_pose3d_tpu_torch.evaluation.engine import make_predict_fn
 from metro_pose3d_tpu_torch.init import init_metro_model
 from metro_pose3d_tpu_torch.ops import pool, warp
@@ -88,7 +88,7 @@ def test_tiny_serving_on_card_matches_cpu(cuda):
                                      "model.depth": "4", "model.compute_dtype": "float32"})
     torch.backends.cudnn.allow_tf32 = False
     try:
-        cpu_model = init_metro_model(cfg.model, seed=1)
+        cpu_model = init_metro_model(cfg.model, seed=1, device="cpu")
         gpu_model = init_metro_model(cfg.model, seed=1, device=cuda)
         rng = np.random.RandomState(2)
         h, k, d = _params(rng, 4, 128, 64)
@@ -213,3 +213,83 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
         # Adam's step of lr with the other sign
         atol = 1e-4 if name.endswith((".mean", ".var")) else 2 * lr + 1e-6
         torch.testing.assert_close(sd_gpu[name], sd_cpu[name], rtol=0, atol=atol)
+
+
+def _smooth_relu(shape, device):
+    """A smooth field through a ReLU: patches of exact zeros, as after bn_stem + ReLU."""
+    b, c, h, w = shape
+    coarse = torch.randn(b, c, -(-h // 4), -(-w // 4), device=device)
+    smooth = coarse.repeat_interleave(4, dim=2).repeat_interleave(4, dim=3)[:, :, :h, :w]
+    return torch.relu(smooth + 0.3 * torch.randn(shape, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 128, 128), (3, 5, 15, 13), (1, 8, 9, 16)])
+@pytest.mark.parametrize("mode", ["torch", "keras"])
+def test_pool_mode_kernels_match_plain(cuda, mode, shape, dtype):
+    cl = dict(memory_format=torch.channels_last)
+    for x in (torch.randn(shape, device=cuda), -torch.rand(shape, device=cuda) - 0.5,
+              _smooth_relu(shape, cuda)):
+        x = x.to(dtype).contiguous(**cl)
+        xr = x.clone().requires_grad_(True)
+        fwd, bwd = pool.MODE_LAUNCHES[mode], pool.MODE_BWD_LAUNCHES[mode]
+        y = pool.stem_max_pool(xr, mode)
+        assert torch.equal(y, pool.max_pool_plain(x, mode))  # max is exact
+        g = torch.randn(y.shape, device=cuda).to(dtype)
+        y.backward(g)
+        assert (pool.MODE_LAUNCHES[mode], pool.MODE_BWD_LAUNCHES[mode]) == (fwd + 1, bwd + 1)
+        want = pool.max_pool_bwd_plain(x.float(), g.float(), mode)
+        err = (xr.grad.float() - want).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 1e-6
+        else:  # within one bf16 ulp of the float32 sum
+            assert bool((err <= want.abs() * 2 ** -7).all())
+    # all-negative input: only the keras pad's 0 wins, and only at the border
+    zeros = pool.max_pool_cuda(
+        (-torch.rand(shape, device=cuda) - 0.5).to(dtype).contiguous(**cl), mode) == 0
+    assert bool(zeros.any()) == (mode == "keras")
+
+
+def test_probe_kernels_match_plain(cuda):
+    from metro_pose3d_tpu_torch.probes import gather, prims
+
+    for h, w, axis, dtype, b in gather.SHAPES[3:] + [(16, 24, 0, torch.float32, 3)]:
+        x, idx = gather.make_case(h, w, axis, dtype, b, device=cuda)
+        before = gather.LAUNCHES.get((h, w, axis, dtype, b), 0)
+        assert torch.equal(gather.gather_cuda(x, idx, axis), gather.gather_plain(x, idx, axis))
+        assert gather.LAUNCHES[h, w, axis, dtype, b] == before + 1
+    for name, (cuda_fn, plain_fn, args, _) in prims.make_cases(device=cuda, b=4).items():
+        before = sum(prims.LAUNCHES.values())
+        got = cuda_fn(*args)
+        assert sum(prims.LAUNCHES.values()) == before + 1
+        assert torch.equal(got, plain_fn(*args)), name
+    with pytest.raises(ValueError):
+        prims.lane_loop_cuda(torch.zeros(1, 2, 300, dtype=torch.int32, device=cuda),
+                             torch.zeros(1, 2, 300, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("family", ["torchvision", "keras_v2", "twofive"])
+def test_tiny_family_serving_on_card_matches_cpu(cuda, family):
+    over = {"torchvision": {"model.preactivation": "false", "model.conv_padding": "torch",
+                            "model.stride_position": "first"},
+            "keras_v2": {"model.conv_padding": "keras", "model.v2_biases": "true"},
+            "twofive": {"model.model_class": "twofive"}}[family]
+    cfg = apply_overrides(Config(), {"model.backbone": "tiny", "model.proc_side": "64",
+                                     "model.depth": "4", "model.compute_dtype": "float32",
+                                     **over})
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu_model = init_metro_model(cfg.model, seed=1, device="cpu")
+        gpu_model = init_metro_model(cfg.model, seed=1, device=cuda)
+        rng = np.random.RandomState(2)
+        crops = torch.from_numpy(rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8))
+        intr = torch.tensor([[[900.0, 0, 31.5], [0, 900.0, 31.5], [0, 0, 1]]] * 4)
+        fn = make_predict_fn(cfg, np.arange(17), flip_tta=True, reconstruct=True)
+        want = fn(cpu_model, crops, intr)
+        got = fn(gpu_model, crops.to(cuda), intr.to(cuda))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    assert set(got) == set(want)
+    for key in want:
+        # float32 with TF32 off: other summation orders only
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=1e-2)

@@ -144,6 +144,8 @@ def test_pose_estimator_matches_predict_fn(golden_inputs):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke, import without jax, flax or
+    cv2 and without any module of the JAX package."""
     code = (
         "import pkgutil, importlib, sys, metro_pose3d_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -153,7 +155,14 @@ def test_port_imports_no_jax():
         "import metro_pose3d_tpu_torch.train.state, metro_pose3d_tpu_torch.train.checkpoint\n"
         "import metro_pose3d_tpu_torch.models.losses, metro_pose3d_tpu_torch.ops.occlusion\n"
         "import metro_pose3d_tpu_torch.pipeline.occluders\n"
+        "import metro_pose3d_tpu_torch.config, metro_pose3d_tpu_torch.geom.camera\n"
+        "import metro_pose3d_tpu_torch.geom.joints, metro_pose3d_tpu_torch.reference_constants\n"
+        "import metro_pose3d_tpu_torch.utils.convert_backbone\n"
+        "import metro_pose3d_tpu_torch.probes.gather, metro_pose3d_tpu_torch.probes.prims\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in ('jax', 'flax', 'cv2') if m in sys.modules)\n"
+        "bad += sorted(k for k in sys.modules if k == 'metro_pose3d_tpu'\n"
+        "              or k.startswith('metro_pose3d_tpu.'))\n"
         "n = sum(k.startswith('metro_pose3d_tpu_torch') for k in sys.modules)\n"
         "print(bad, n)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -162,7 +171,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 23  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 33  # every module was imported
 
 
 def test_entry_runs_flagship_on_cpu():

@@ -76,14 +76,14 @@ def test_converted_tree_matches_port_and_init():
     assert "backbone.stage1_block1.proj.weight" in port  # tiny: projects and strides
     assert "backbone.stage1_block1.bn_pre.mean" in port
 
-    init = init_metro_model(cfg.model, seed=3).state_dict()
+    init = init_metro_model(cfg.model, seed=3, device="cpu").state_dict()
     assert set(init) == set(port)
     w = init["backbone.stage2_block1.conv2.weight"]  # fan_in = 16 * 3 * 3
     assert abs(float(w.std()) - (1 / 144) ** 0.5) < 0.02
     assert float(w.abs().max()) <= 2 * (1 / 144) ** 0.5 / 0.8796 + 1e-6
     assert torch.equal(init["head3d.bias"], torch.zeros_like(init["head3d.bias"]))
     assert torch.equal(init["backbone.bn_final.var"], torch.ones_like(init["backbone.bn_final.var"]))
-    again = init_metro_model(cfg.model, seed=3).state_dict()
+    again = init_metro_model(cfg.model, seed=3, device="cpu").state_dict()
     assert all(torch.equal(init[k], again[k]) for k in init)
 
 
@@ -93,5 +93,18 @@ def test_converted_tree_matches_port_and_init():
     ("model_class", "twofive"),
 ])
 def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        MetroModel(_cfg(**{field: value}).model)
+    """Only the int8 path is still refused; every other option builds, with
+    the leaves the flax tree has for it (parity: tests/test_torch_families.py)."""
+    cfg = _cfg(**{field: value}).model
+    if field == "quantize":
+        with pytest.raises(NotImplementedError, match=field):
+            MetroModel(cfg)
+        return
+    names = set(MetroModel(cfg).state_dict())
+    expected = {
+        "conv_padding": "backbone.bn_final.scale", "preactivation": "backbone.bn_stem.scale",
+        "backbone": "backbone.stage4_block2.conv2.weight",
+        "v2_biases": "backbone.conv_stem.bias", "model_class": "head3d.weight",
+    }[field]
+    assert expected in names
+    assert ("backbone.bn_final.scale" in names) == (field != "preactivation")
