@@ -9,38 +9,43 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
 
   1 env      torch and CUDA versions, the card's name and power limit
   2 build    nvcc build of the kernel library, in seconds
-  3 k3       stem max pool kernel == its plain version, bit for bit
+  3 k3       stem max pool kernel == its plain version, bit for bit (NaN
+             where it has NaN), in both variants: 16-byte vectors and scalar
   4 k1       crop warp kernel against its plain version (atol 0.05 in [0,255])
   5 serve    the serving path at the default Config() (ResNet-50 @ 256,
              bf16, flip TTA, full reconstruction) with seeded random
              weights: 3 crop-in and 3 tile-in requests of 64; both kernels
-             must have launched
+             must have launched, the pool in its 16-byte variant
   6 parity   the same path in float32 (TF32 off) on the card and on the CPU
   7 time     kernels against their plain versions, and crops/s of the
              serving forms, with CUDA events (informative only)
   8 k2       occluder paste kernel against its plain version (atol 1e-5)
-  9 k3-bwd   stem pool backward kernel against the plain backward, ties
-             included: float32 within 1e-6, bf16 within one bf16 ulp of the
-             float32 sum
+  9 k3-bwd   stem pool backward kernel against the plain backward on random,
+             tied, post-ReLU and all-negative inputs, in both variants:
+             float32 within 1e-6, bf16 within one bf16 ulp of the float32
+             sum; two launches on one input bitwise equal
  10 train    the training path at the default Config() (R50@256 bf16, 64 3D
              + 32 2D rows, 512^2 tiles) through `train()`: 10 steps with a
              checkpoint at 5, a resume from 5 to 10, then 20 steps on one
-             batch whose loss must fall; all four kernels must have launched
+             batch whose loss must fall; all four kernels must have launched,
+             the pool's forward and backward in their 16-byte variants
  11 t-parity one float32 train step (TF32 off) on the card and on the CPU
- 12 t-time   K2, K3-bwd and the bf16 train step at B=96 (informative), with
-             a profiler breakdown of the step
+ 12 t-time   K2, K3-bwd (random and post-ReLU input) and the bf16 train step
+             at B=96 (informative), with a profiler breakdown of the step
  13 modes    the pool's `torch` and `keras` alignments: forward bit for bit
              (float32 and bf16, even and odd sizes, all-negative border
              windows, the main-path shape), backward at phase 9's tolerances
              on random, tied and post-ReLU inputs, with the share of tied
-             windows; then their times beside `F.max_pool2d`
+             windows, in both variants; then their times beside
+             `F.max_pool2d`
  14 families serving at full width (bf16, 256^2, B=64, flip TTA, full depth)
              of (a) the torchvision layout: resnet50 v1.5, torch padding,
              stride on the first unit; (b) the Keras-v2 layout: resnet50 v2,
              keras padding, stride on the last unit, v2 biases; (c) resnet34
              with (a)'s flags; (d) the 2.5D head on the default backbone:
              3 crop-in + 3 tile-in requests each, the pool kernel of the
-             family's alignment and the warp must have launched; float32
+             family's alignment (16-byte variant) and the warp must have
+             launched; float32
              card against CPU for (a) and (b); crops/s of (a), (b), (c)
  15 f-train  training (a) from a backbone `.npz` written from a seeded
              torchvision-named state dict (`train.backbone_init`): 6 steps
@@ -57,7 +62,8 @@ the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
 record holds its launches on the path that runs it, its time, its plain
 version's, its bound (the larger of bytes moved over the card's 3.35 TB/s
 and operations over the card's peak for their type) and, where one PyTorch
-call computes the same function, that call's time. Without CUDA it exits
+call computes the same function, that call's time; a pool record also holds
+its share of the bound and its time before its redesign. Without CUDA it exits
 non-zero at once and prints no result. It imports no jax.
 """
 from __future__ import annotations
@@ -294,9 +300,11 @@ def pool_inputs(gen, dev, shape, dtype, kind):
     neighbours often equal); "relu" (a smooth field through a ReLU, as
     after bn_stem + ReLU: about half exact zeros, in patches, so whole
     windows tie at 0); "negative" (all values below 0, so a Keras border
-    window returns its 0 pad)."""
+    window returns its 0 pad); "nan" (random, with about 1% NaN)."""
     x = torch.randn(shape, generator=gen, device=dev)
-    if kind == "ties":
+    if kind == "nan":
+        x[torch.rand(shape, generator=gen, device=dev) < 0.01] = float("nan")
+    elif kind == "ties":
         x = torch.round(x * 4) / 4
     elif kind == "relu":
         b, c, h, w = shape
@@ -308,23 +316,79 @@ def pool_inputs(gen, dev, shape, dtype, kind):
     return x.to(dtype).contiguous(memory_format=torch.channels_last)
 
 
+def pool_widths(x):
+    """The pool kernels' variants that x allows: the 16-byte vector (where
+    `vector_width` picks it) and the scalar one, as `width` arguments."""
+    from metro_pose3d_tpu_torch.ops.pool import vector_width
+
+    vec = vector_width(x.shape[1], x.dtype, x.data_ptr())
+    return [vec, 1] if vec > 1 else [1]
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits, as integers of its element size."""
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype])
+
+
+def same_values(got, want) -> bool:
+    """Equal value for value, NaN where the other has NaN."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan]))
+
+
+def check_pool_fwd(pool, x, mode="same"):
+    """Forward kernel, in every variant x allows, against the plain version,
+    value for value (NaN where it has NaN). -> (max abs err, variants)."""
+    want, err = pool.max_pool_plain(x, mode), 0.0
+    for width in pool_widths(x):
+        got = pool.max_pool_cuda(x, mode, width=width)
+        torch.cuda.synchronize()
+        if not same_values(got, want):
+            fail(f"pool kernel ({mode}, {pool.variant(width)}) differs from its plain version at "
+                 f"{tuple(x.shape)} {x.dtype}")
+        ok = ~torch.isnan(want)
+        err = max(err, float((got[ok].float() - want[ok].float()).abs().max()))
+    return err, "+".join(pool.variant(w) for w in pool_widths(x))
+
+
 def check_pool_bwd(pool, x, g, mode):
-    """Backward kernel against the plain backward on float32 copies: float32
-    within 1e-6, bf16 within one bf16 ulp of the float32 sum. -> (max abs
+    """Backward kernel, in every variant x allows, against the plain backward
+    on float32 copies: float32 within 1e-6, bf16 within one bf16 ulp of the
+    float32 sum; a second launch bitwise equal to the first. -> (max abs
     err, note)."""
-    got = pool.max_pool_bwd_cuda(x, g, mode)
     want = pool.max_pool_bwd_plain(x.float(), g.float(), mode)
-    err = (got.float() - want).abs()
-    if x.dtype == torch.float32:
-        ok, note = float(err.max()) <= 1e-6, f"max abs err {float(err.max()):.2e} (tol 1e-6)"
-    else:
-        ulps = float((err / (want.abs() * 2 ** -7).clamp_min(1e-30)).max())
-        ok = bool((err <= want.abs() * 2 ** -7).all())
-        note = f"max err {ulps:.2f} bf16 ulp of the float32 sum (tol 1)"
-    if not ok:
-        fail(f"pool backward kernel ({mode}) off its plain version at {tuple(x.shape)} "
-             f"{x.dtype}: {note}")
-    return float(err.max()), note
+    worst, notes = 0.0, []
+    for width in pool_widths(x):
+        got = pool.max_pool_bwd_cuda(x, g, mode, width=width)
+        again = pool.max_pool_bwd_cuda(x, g, mode, width=width)
+        if not torch.equal(bits(got), bits(again)):
+            fail(f"pool backward kernel ({mode}, {pool.variant(width)}) gave two results on one "
+                 f"input at {tuple(x.shape)} {x.dtype}")
+        err = (got.float() - want).abs()
+        if x.dtype == torch.float32:
+            ok, note = float(err.max()) <= 1e-6, f"max abs err {float(err.max()):.2e} (tol 1e-6)"
+        else:
+            ulps = float((err / (want.abs() * 2 ** -7).clamp_min(1e-30)).max())
+            ok = bool((err <= want.abs() * 2 ** -7).all())
+            note = f"max err {ulps:.2f} bf16 ulp of the float32 sum (tol 1)"
+        if not ok:
+            fail(f"pool backward kernel ({mode}, {pool.variant(width)}) off its plain version at "
+                 f"{tuple(x.shape)} {x.dtype}: {note}")
+        worst = max(worst, float(err.max()))
+        notes.append(f"{pool.variant(width)} {note}")
+    return worst, "; ".join(notes) + ", repeat launches bitwise equal"
+
+
+def check_pool_variants(where: str, ways=("fwd",)) -> None:
+    """Fail unless every pool launch counted since the last reset went
+    through the 16-byte variant (and some did)."""
+    from metro_pose3d_tpu_torch.ops import pool
+
+    for way in ways:
+        counts = pool.VARIANT_LAUNCHES[way]
+        if counts["vec16"] == 0 or counts["scalar"]:
+            fail(f"{where}: the pool {way} did not run in its 16-byte variant only: {counts}")
 
 
 def phase_pool_modes(gen, dev, card):
@@ -340,22 +404,24 @@ def phase_pool_modes(gen, dev, card):
                                    ((16, 64, 128, 128), torch.float32, "relu"),
                                    ((8, 64, 127, 129), torch.bfloat16, "negative"),
                                    ((8, 24, 33, 18), torch.float32, "negative"),
-                                   ((4, 64, 128, 128), torch.bfloat16, "negative")):
+                                   ((4, 64, 128, 128), torch.bfloat16, "negative"),
+                                   ((4, 64, 128, 128), torch.bfloat16, "nan"),
+                                   ((3, 8, 15, 13), torch.float32, "nan"),
+                                   ((3, 5, 16, 14), torch.bfloat16, "ties")):
             x = pool_inputs(gen, dev, shape, dtype, kind)
-            got, want = pool.max_pool_cuda(x, mode), pool.max_pool_plain(x, mode)
-            torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.equal(got, want):
-                fail(f"pool kernel ({mode}) differs from its plain version at {shape} {dtype}")
-            fwd_err = max(fwd_err, float((got.float() - want.float()).abs().max()))
+            err, variants = check_pool_fwd(pool, x, mode)
+            fwd_err = max(fwd_err, err)
             note = ""
             if kind == "negative":
+                got = pool.max_pool_cuda(x, mode)
                 zeros = float((got == 0).float().mean())
                 border = 1 - (got.shape[2] - 2) * (got.shape[3] - 2) / (got.shape[2] * got.shape[3])
                 if (mode == "keras") != (zeros > 0) or zeros > border:
                     fail(f"pool ({mode}) on an all-negative input: share of zero outputs "
                          f"{zeros}, border windows {border}")
                 note = f", all-negative input: outputs equal to the 0 pad {zeros:.4f}"
-            print(f"[13 modes] {mode} fwd {tuple(shape)} {dtype} {kind}: bit-exact{note}")
+            print(f"[13 modes] {mode} fwd {tuple(shape)} {dtype} {kind}: bit-exact ({variants})"
+                  f"{note}")
         rec[mode, "fwd"] = {"max_abs_err": fwd_err}
 
         bwd_err = 0.0
@@ -364,7 +430,10 @@ def phase_pool_modes(gen, dev, card):
                                    ((8, 64, 127, 129), torch.bfloat16, "ties"),
                                    ((8, 24, 33, 18), torch.float32, "ties"),
                                    ((8, 64, 127, 129), torch.bfloat16, "random"),
-                                   ((8, 24, 33, 18), torch.float32, "random")):
+                                   ((8, 24, 33, 18), torch.float32, "random"),
+                                   ((8, 64, 128, 128), torch.bfloat16, "negative"),
+                                   ((3, 5, 15, 14), torch.float32, "negative"),
+                                   ((4, 64, 64, 66), torch.bfloat16, "nan")):
             x = pool_inputs(gen, dev, shape, dtype, kind)
             y = pool.max_pool_plain(x, mode)
             g = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
@@ -392,8 +461,11 @@ def phase_pool_modes(gen, dev, card):
             rec[mode, "fwd"]["library_ms"] = None
             rec[mode, "fwd"]["two_calls_ms"] = time_ms(
                 lambda: F.max_pool2d(F.pad(xf, (1, 1, 1, 1)), 3, 2))
+        rec[mode, "fwd"]["ms_scalar"] = time_ms(lambda: pool.max_pool_cuda(xf, mode, width=1))
         del xf
-        xb = pool_inputs(gen, dev, (96, 64, 128, 128), torch.bfloat16, "relu")
+        # every backward record: `ms` on the random input, `ms_relu` post-ReLU
+        xb = pool_inputs(gen, dev, (96, 64, 128, 128), torch.bfloat16, "random")
+        xn = pool_inputs(gen, dev, (96, 64, 128, 128), torch.bfloat16, "relu")
         gb = torch.randn((96, 64, 64, 64), generator=gen, device=dev).to(torch.bfloat16)
         gb = gb.contiguous(memory_format=torch.channels_last)
         xr = xb.clone().requires_grad_(True)
@@ -401,6 +473,8 @@ def phase_pool_modes(gen, dev, card):
                           padding=1 if mode == "torch" else 0)
         rec[mode, "bwd"].update(
             ms=time_ms(lambda: pool.max_pool_bwd_cuda(xb, gb, mode)),
+            ms_relu=time_ms(lambda: pool.max_pool_bwd_cuda(xn, gb, mode)),
+            ms_scalar=time_ms(lambda: pool.max_pool_bwd_cuda(xb, gb, mode, width=1)),
             plain_ms=time_ms(lambda: pool.max_pool_bwd_plain(xb, gb, mode)),
             bound=bound(2 * nbytes(xb) + nbytes(gb), 9 * gb.numel()),
             # the library's gradient hands each window's whole gradient to one
@@ -408,13 +482,15 @@ def phase_pool_modes(gen, dev, card):
             library_ms=None,
             argmax_gradient_ms=time_ms(
                 lambda: torch.autograd.grad(yr, xr, gb, retain_graph=True)))
-        del xb, gb, xr, yr
+        del xb, xn, gb, xr, yr
         f, b = rec[mode, "fwd"], rec[mode, "bwd"]
         lib = (f"F.max_pool2d {f['library_ms']:.4f} ms" if mode == "torch"
                else f"F.pad + F.max_pool2d (two calls) {f['two_calls_ms']:.4f} ms")
-        print(f"[13 modes] {mode} fwd [128,64,128,128] bf16: kernel {f['ms']:.4f} ms, plain "
-              f"{f['plain_ms']:.4f} ms, {lib}, bound {f['bound'][0]:.4f} ms  [{card}]")
-        print(f"[13 modes] {mode} bwd [96,64,128,128] bf16: kernel {b['ms']:.4f} ms, plain "
+        print(f"[13 modes] {mode} fwd [128,64,128,128] bf16: kernel {f['ms']:.4f} ms "
+              f"(scalar variant {f['ms_scalar']:.4f}), plain {f['plain_ms']:.4f} ms, {lib}, "
+              f"bound {f['bound'][0]:.4f} ms  [{card}]")
+        print(f"[13 modes] {mode} bwd [96,64,128,128] bf16: kernel {b['ms']:.4f} ms random, "
+              f"{b['ms_relu']:.4f} ms post-ReLU (scalar variant {b['ms_scalar']:.4f}), plain "
               f"{b['plain_ms']:.4f} ms, the library's argmax gradient (another function) "
               f"{b['argmax_gradient_ms']:.4f} ms, bound {b['bound'][0]:.4f} ms  [{card}]")
     torch.cuda.empty_cache()
@@ -466,6 +542,7 @@ def phase_families_serving(rng, dev, card):
         if min(launches[name].values()) == 0 or other:
             fail(f"{name}: the serving path did not launch its kernels: {launches[name]}, "
                  f"pool launches by mode {pool.MODE_LAUNCHES}")
+        check_pool_variants(f"{name} serving")
         line = (f"[14 families] {name} ({cfg.model.backbone}, {mode} pool, bf16, TTA, B={BATCH}): "
                 f"3 crop-in + 3 tile-in requests, outputs finite, launches {launches[name]}")
         if name != "d_twofive":
@@ -591,6 +668,7 @@ def phase_families_training(rng, dev, card, bank_np):
             if min(got.values()) == 0 or other:
                 fail(f"{name}: the training path did not launch its kernels: {got}, pool "
                      f"launches by mode {pool.MODE_LAUNCHES}")
+            check_pool_variants(f"{name} training", ("fwd", "bwd"))
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
             print(f"[15 f-train] {name} R50@256 bf16 B={N3D}+{N2D}"
@@ -746,18 +824,18 @@ def main() -> int:
 
     # 3 K3: pool kernel == plain version, bit for bit
     pool_err = 0.0
-    for shape, dtype in (((64, 64, 128, 128), torch.bfloat16),
-                         ((16, 64, 128, 128), torch.float32),
-                         ((8, 64, 127, 129), torch.bfloat16),
-                         ((8, 24, 33, 18), torch.float32)):
-        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        x = x.contiguous(memory_format=torch.channels_last)
-        got, want = pool.max_pool_cuda(x), pool.max_pool_plain(x)
-        torch.cuda.synchronize()
-        if got.shape != want.shape or not torch.equal(got, want):
-            fail(f"K3 pool kernel differs from its plain version at {shape} {dtype}")
-        pool_err = max(pool_err, float((got.float() - want.float()).abs().max()))
-        print(f"[3 k3] pool {tuple(shape)} {dtype}: bit-exact")
+    for shape, dtype, kind in (((64, 64, 128, 128), torch.bfloat16, "random"),
+                               ((16, 64, 128, 128), torch.float32, "random"),
+                               ((8, 64, 127, 129), torch.bfloat16, "random"),
+                               ((8, 24, 33, 18), torch.float32, "random"),
+                               ((8, 64, 128, 128), torch.bfloat16, "relu"),
+                               ((4, 64, 127, 129), torch.bfloat16, "nan"),
+                               ((3, 5, 15, 13), torch.float32, "nan"),
+                               ((2, 8, 9, 16), torch.bfloat16, "ties")):
+        x = pool_inputs(gen, dev, shape, dtype, kind)
+        err, variants = check_pool_fwd(pool, x)
+        pool_err = max(pool_err, err)
+        print(f"[3 k3] pool {tuple(shape)} {dtype} {kind}: bit-exact ({variants})")
 
     # 4 K1: warp kernel against its plain version
     warp_max = 0.0
@@ -809,8 +887,10 @@ def main() -> int:
                 fail(f"serving output {key}: shape {tuple(out[key].shape)} or not finite")
     if launches["pool"] == 0 or launches["warp"] == 0:
         fail(f"the serving path did not launch every kernel: {launches}")
+    check_pool_variants("serving")
     print(f"[5 serve] 3 crop-in + 3 tile-in requests of {BATCH} (R50@256 bf16, TTA, "
-          f"full reconstruction): outputs finite, launches {launches}")
+          f"full reconstruction): outputs finite, launches {launches}, pool variants "
+          f"{pool.VARIANT_LAUNCHES['fwd']}")
 
     # 6 parity: float32 on the card against float32 on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -846,10 +926,12 @@ def main() -> int:
         lambda: pool.max_pool_plain(xp))
     pool_two_calls_ms = time_ms(lambda: F.max_pool2d(
         F.pad(xp, (0, 1, 0, 1), value=float("-inf")), 3, 2))
+    pool_scalar_ms = time_ms(lambda: pool.max_pool_cuda(xp, width=1))
     pool_bound = bound(nbytes(xp) * 1.25, 9 * xp.numel() / 4)
-    print(f"[7 time] K3 pool [{2 * BATCH},64,128,128] bf16: kernel {pool_ms:.4f} ms, "
-          f"plain {pool_plain_ms:.4f} ms, F.pad + F.max_pool2d (two calls) "
-          f"{pool_two_calls_ms:.4f} ms, bound {pool_bound[0]:.4f} ms  [{card}]")
+    print(f"[7 time] K3 pool [{2 * BATCH},64,128,128] bf16: kernel {pool_ms:.4f} ms "
+          f"(scalar variant {pool_scalar_ms:.4f}), plain {pool_plain_ms:.4f} ms, F.pad + "
+          f"F.max_pool2d (two calls) {pool_two_calls_ms:.4f} ms, bound {pool_bound[0]:.4f} ms"
+          f"  [{card}]")
     del xp
     t = {k: torch.from_numpy(v).to(dev) for k, v in tile_reqs[0].items()}
     wargs = (t["source"], t["warp_h"], t["warp_k"], t["warp_dist"], side)
@@ -907,37 +989,24 @@ def main() -> int:
 
     # 9 K3 backward: kernel against the plain backward, ties included
     bwd_err = 0.0
-    for shape, dtype, ties in (((96, 64, 128, 128), torch.bfloat16, False),
-                               ((96, 64, 128, 128), torch.float32, False),
-                               ((8, 64, 127, 129), torch.bfloat16, True),
-                               ((8, 24, 33, 18), torch.float32, True)):
-        x = torch.randn(shape, generator=gen, device=dev)
-        if ties:
-            x = torch.round(x * 4) / 4  # neighbours often equal
-        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    for shape, dtype, kind in (((96, 64, 128, 128), torch.bfloat16, "random"),
+                               ((96, 64, 128, 128), torch.float32, "random"),
+                               ((96, 64, 128, 128), torch.bfloat16, "relu"),
+                               ((8, 64, 127, 129), torch.bfloat16, "ties"),
+                               ((8, 24, 33, 18), torch.float32, "ties"),
+                               ((8, 64, 128, 128), torch.bfloat16, "negative"),
+                               ((4, 64, 127, 129), torch.bfloat16, "nan"),
+                               ((3, 5, 15, 13), torch.float32, "relu")):
+        x = pool_inputs(gen, dev, shape, dtype, kind)
         g = torch.randn((shape[0], shape[1], (shape[2] + 1) // 2, (shape[3] + 1) // 2),
                         generator=gen, device=dev).to(dtype)
-        got = pool.max_pool_bwd_cuda(x, g)
-        want = pool.max_pool_bwd_plain(x.float(), g.float())  # float32 sums of dtype values
-        err = (got.float() - want).abs()
-        bwd_err = max(bwd_err, float(err.max()))
-        if dtype == torch.float32:
-            ok, note = float(err.max()) <= 1e-6, f"max abs err {float(err.max()):.2e} (tol 1e-6)"
-        else:
-            ulps = float((err / (want.abs() * 2 ** -7).clamp_min(1e-30)).max())
-            same = float((got.float() - pool.max_pool_bwd_plain(x, g).float()).abs().max())
-            ok = bool((err <= want.abs() * 2 ** -7).all())
-            note = (f"max err {ulps:.2f} bf16 ulp of the float32 sum (tol 1), "
-                    f"max abs diff to the bf16 autograd {same:.2e}")
-        if not ok:
-            fail(f"K3 backward kernel off its plain version at {shape} {dtype}: {note}")
-        tied = ""
-        if ties:
-            y = pool.max_pool_plain(x)
-            share = float((tie_count(x, y) > 1).float().mean())
-            tied = f", windows with a tied max {share:.3f}"
-        print(f"[9 k3-bwd] {tuple(shape)} {dtype}: {note}{tied}")
-    del x, g, got, want, err
+        err, note = check_pool_bwd(pool, x, g, "same")
+        bwd_err = max(bwd_err, err)
+        y = pool.max_pool_plain(x)
+        share = float((tie_count(x, y) > 1).float().mean())
+        print(f"[9 k3-bwd] {tuple(shape)} {dtype} {kind}: {note}; windows with a tied max "
+              f"{share:.3f}")
+    del x, g, y
 
     # 10 train: the main path of this slice, counting kernel launches
     t0 = time.perf_counter()
@@ -973,6 +1042,8 @@ def main() -> int:
                           "warp": warp.LAUNCHES, "occluder": occlusion.LAUNCHES}
         if any(v == 0 for v in train_launches.values()):
             fail(f"the training path did not launch every kernel: {train_launches}")
+        check_pool_variants("training", ("fwd", "bwd"))
+        grad_copies = pool.GRAD_COPIES
         if state.step != 10 or resumed.step != 10 or warp.LAUNCHES - warp_before != 5:
             fail(f"resume: steps {state.step}, {resumed.step}, "
                  f"{warp.LAUNCHES - warp_before} steps after the restore (want 5)")
@@ -986,7 +1057,11 @@ def main() -> int:
             fail(f"the resumed run's loss at step 10 differs by {d10:.2e} (rel)")
         print(f"[10 train] Config() R50@256 bf16, B={N3D}+{N2D}: 10 steps in {first_leg:.1f} s "
               f"(loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, finite), checkpoint at 5, "
-              f"resumed 5 -> 10 (step-10 loss rel diff {d10:.1e}); launches {train_launches}")
+              f"resumed 5 -> 10 (step-10 loss rel diff {d10:.1e}); launches {train_launches}, "
+              f"pool variants {pool.VARIANT_LAUNCHES}; the gradient reaching the pool was "
+              + ("channels_last at every backward launch" if grad_copies == 0 else
+                 f"not channels_last at {grad_copies} of {train_launches['pool_bwd']} backward "
+                 f"launches, and was copied"))
         del state, resumed
         fixed, hist3 = run(os.path.join(tmp, "fixed"), {
             "train.warmup_steps": "0", "data.cycle_batches": "1", "train.checkpoint_every": "20"},
@@ -1041,15 +1116,19 @@ def main() -> int:
     occ_bound = bound(2 * nbytes(k2_args[0]) + nbytes(*k2_args[1:]), 40 * 96 * side * side)
     print(f"[12 t-time] K2 occluder paste B=96 {side}^2: kernel {occ_ms:.4f} ms, "
           f"plain {occ_plain_ms:.4f} ms, bound {occ_bound[0]:.4f} ms  [{card}]")
-    xb = torch.randn((96, 64, 128, 128), generator=gen, device=dev).to(torch.bfloat16)
-    xb = xb.contiguous(memory_format=torch.channels_last)
+    xb = pool_inputs(gen, dev, (96, 64, 128, 128), torch.bfloat16, "random")
+    xr = pool_inputs(gen, dev, (96, 64, 128, 128), torch.bfloat16, "relu")
     gb = torch.randn((96, 64, 64, 64), generator=gen, device=dev).to(torch.bfloat16)
+    gb = gb.contiguous(memory_format=torch.channels_last)
     bwd_ms, bwd_plain_ms = time_ms(lambda: pool.max_pool_bwd_cuda(xb, gb)), time_ms(
         lambda: pool.max_pool_bwd_plain(xb, gb))
+    bwd_relu_ms = time_ms(lambda: pool.max_pool_bwd_cuda(xr, gb))
+    bwd_scalar_ms = time_ms(lambda: pool.max_pool_bwd_cuda(xb, gb, width=1))
     bwd_bound = bound(2 * nbytes(xb) + nbytes(gb), 9 * gb.numel())
-    print(f"[12 t-time] K3-bwd [96,64,128,128] bf16: kernel {bwd_ms:.4f} ms, "
-          f"plain {bwd_plain_ms:.4f} ms, bound {bwd_bound[0]:.4f} ms  [{card}]")
-    del xb, gb
+    print(f"[12 t-time] K3-bwd [96,64,128,128] bf16: kernel {bwd_ms:.4f} ms random, "
+          f"{bwd_relu_ms:.4f} ms post-ReLU (scalar variant {bwd_scalar_ms:.4f}), plain "
+          f"{bwd_plain_ms:.4f} ms, bound {bwd_bound[0]:.4f} ms  [{card}]")
+    del xb, xr, gb
     tcfg = Config()
     st = create_train_state(tcfg, dev, seed=SEED)
     step = make_train_step(tcfg, 0, occluder_bank=bank)
@@ -1075,6 +1154,7 @@ def main() -> int:
                 "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms, **more}
 
+
     pallas_pool = "metro_pose3d_tpu/ops/pool_pallas.py:90"
     mode_launches = {
         ("torch", "fwd"): fam_launches["a_torchvision_r50"]["pool_torch"]
@@ -1088,14 +1168,17 @@ def main() -> int:
         kernel("maxpool3x3s2_same", "maxpool3x3s2.cu", pallas_pool,
                launches["pool"] + train_launches["pool"] + fam_launches["d_twofive"]["pool_same"],
                pool_err, pool_ms, pool_plain_ms, pool_bound, None,
-               two_calls_ms=pool_two_calls_ms),
+               bound_share=pool_bound[0] / pool_ms, two_calls_ms=pool_two_calls_ms,
+               ms_scalar=pool_scalar_ms),
         kernel("maxpool3x3s2_same_bwd", "maxpool3x3s2_bwd.cu", pallas_pool,
-               train_launches["pool_bwd"], bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, None),
+               train_launches["pool_bwd"], bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, None,
+               bound_share=bwd_bound[0] / bwd_ms, ms_relu=bwd_relu_ms, ms_scalar=bwd_scalar_ms),
         *[kernel(f"maxpool3x3s2_{mode}" + ("_bwd" if way == "bwd" else ""),
                  "maxpool3x3s2_bwd.cu" if way == "bwd" else "maxpool3x3s2.cu", pallas_pool,
                  mode_launches[mode, way], r["max_abs_err"], r["ms"], r["plain_ms"], r["bound"],
-                 r["library_ms"],
-                 **{k: r[k] for k in ("two_calls_ms", "argmax_gradient_ms") if k in r})
+                 r["library_ms"], bound_share=r["bound"][0] / r["ms"],
+                 **{k: r[k] for k in ("two_calls_ms", "argmax_gradient_ms", "ms_relu",
+                                      "ms_scalar") if k in r})
           for (mode, way), r in modes.items()],
         kernel("warp_crop", "warp_crop.cu", "metro_pose3d_tpu/ops/warp_pallas.py:415",
                launches["warp"] + train_launches["warp"], warp_max, warp_ms, warp_plain_ms,

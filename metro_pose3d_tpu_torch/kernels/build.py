@@ -38,10 +38,10 @@ LIB_NAME = "libmetro_kernels.so"
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # x, y, dtype, B, H, W, C, OH, OW, pad_top, pad_left, fill, stream
-    "metro_maxpool3x3s2": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
-    # x, g, dx, dtype, B, H, W, C, OH, OW, pad_top, pad_left, fill, stream
-    "metro_maxpool3x3s2_bwd": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
+    # x, y, dtype, vec, B, H, W, C, OH, OW, pad_top, pad_left, fill, stream
+    "metro_maxpool3x3s2": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
+    # x, g, dx, dtype, vec, B, H, W, C, OH, OW, pad_top, pad_left, fill, stream
+    "metro_maxpool3x3s2_bwd": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
     # crops, bank, idx, affine, enabled, out, B, N, T, S, stream
     "metro_occluder_paste": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     # src, params, src_idx, out, B, N, TH, TW, S, stream

@@ -27,6 +27,11 @@ dropped with the pad. On CUDA tensors `stem_max_pool` is an autograd
 Function whose backward is a kernel too (csrc/maxpool3x3s2_bwd.cu), with
 the same tie rule. `F.max_pool2d` is used nowhere: its backward hands the
 whole gradient to one argmax, which is another function.
+
+Each kernel is one template with a vector width: a thread loads a 16-byte
+vector of channels (8 bf16 or 4 float32) where C is a multiple of it and
+every pointer is 16-byte aligned, and one element otherwise (the scalar
+variant, the same hand-written kernel). `vector_width` makes that choice.
 """
 from __future__ import annotations
 
@@ -36,25 +41,72 @@ import torch.nn.functional as F
 from metro_pose3d_tpu_torch.kernels import build
 
 MODES = ("same", "torch", "keras")
-# kernel launches on CUDA tensors by mode: forward by `stem_max_pool`, backward
-# from its gradient. `LAUNCHES` and `BWD_LAUNCHES` read as their sums.
-MODE_LAUNCHES = dict.fromkeys(MODES, 0)
-MODE_BWD_LAUNCHES = dict.fromkeys(MODES, 0)
+WAYS = ("fwd", "bwd")
+VARIANTS = ("vec16", "scalar")  # 16-byte vectors, or one element a thread
+# kernel launches on CUDA tensors by (way, mode, variant): "fwd" by
+# `stem_max_pool`, "bwd" from its gradient. The module attributes
+# `LAUNCHES`, `BWD_LAUNCHES` (totals), `MODE_LAUNCHES`, `MODE_BWD_LAUNCHES`
+# ({mode: n}) and `VARIANT_LAUNCHES` ({way: {variant: n}}) are views of it.
+KERNEL_LAUNCHES = {(way, mode, var): 0 for way in WAYS for mode in MODES for var in VARIANTS}
+# backward launches whose output gradient was not channels_last and was copied
+GRAD_COPIES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def __getattr__(name: str) -> int:
-    totals = {"LAUNCHES": MODE_LAUNCHES, "BWD_LAUNCHES": MODE_BWD_LAUNCHES}
-    if name in totals:
-        return sum(totals[name].values())
+def launches(way: str | None = None, mode: str | None = None, var: str | None = None) -> int:
+    """Launches counted in `KERNEL_LAUNCHES` that match every key given."""
+    return sum(n for (w, m, v), n in KERNEL_LAUNCHES.items()
+               if way in (None, w) and mode in (None, m) and var in (None, v))
+
+
+def __getattr__(name: str):
+    views = {
+        "LAUNCHES": lambda: launches("fwd"),
+        "BWD_LAUNCHES": lambda: launches("bwd"),
+        "MODE_LAUNCHES": lambda: {m: launches("fwd", m) for m in MODES},
+        "MODE_BWD_LAUNCHES": lambda: {m: launches("bwd", m) for m in MODES},
+        "VARIANT_LAUNCHES": lambda: {w: {v: launches(w, var=v) for v in VARIANTS} for w in WAYS},
+    }
+    if name in views:
+        return views[name]()
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launches() -> None:
     """Set every launch count of this module to 0."""
-    for counts in (MODE_LAUNCHES, MODE_BWD_LAUNCHES):
-        counts.update(dict.fromkeys(MODES, 0))
+    global GRAD_COPIES
+    KERNEL_LAUNCHES.update(dict.fromkeys(KERNEL_LAUNCHES, 0))
+    GRAD_COPIES = 0
+
+
+def vector_width(c: int, dtype: torch.dtype, *data_ptrs: int) -> int:
+    """Channels a kernel thread loads at once: a 16-byte vector (8 bf16, 4
+    float32) when C is a multiple of it and every pointer is 16-byte
+    aligned, else 1 (the scalar variant)."""
+    vec = 16 // dtype.itemsize
+    return vec if c % vec == 0 and all(p % 16 == 0 for p in data_ptrs) else 1
+
+
+def _width(c, dtype, ptrs, width):
+    """The width to launch: `vector_width`'s choice, or the caller's `width`
+    (1, or the vector where the tensors allow it)."""
+    allowed = vector_width(c, dtype, *ptrs)
+    if width is None:
+        return allowed
+    if width not in (1, allowed):
+        raise ValueError(f"pool kernel width {width} does not fit C={c} {dtype} at these "
+                         f"pointers (allowed: 1, {allowed})")
+    return width
+
+
+def variant(width: int) -> str:
+    """The variant a launch of `width` channels a thread runs: "vec16" or "scalar"."""
+    return "scalar" if width == 1 else "vec16"
+
+
+def _count(way: str, mode: str, width: int) -> None:
+    KERNEL_LAUNCHES[way, mode, variant(width)] += 1
 
 
 def pool_geometry(h: int, w: int, mode: str = "same"):
@@ -92,8 +144,9 @@ def max_pool_plain(x: torch.Tensor, mode: str = "same") -> torch.Tensor:
     return out.contiguous(memory_format=torch.channels_last)
 
 
-def max_pool_cuda(x: torch.Tensor, mode: str = "same") -> torch.Tensor:
-    """Launch the CUDA kernel (csrc/maxpool3x3s2.cu) on a channels_last tensor."""
+def max_pool_cuda(x: torch.Tensor, mode: str = "same", width: int | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel (csrc/maxpool3x3s2.cu) on a channels_last
+    tensor; `width` (1 or the vector) overrides `vector_width`'s choice."""
     if not x.is_cuda:
         raise ValueError(f"max_pool_cuda needs a CUDA tensor, got {x.device}")
     _check(x)
@@ -103,13 +156,14 @@ def max_pool_cuda(x: torch.Tensor, mode: str = "same") -> torch.Tensor:
     oh, ow, (top, _), (left, _), fill = pool_geometry(h, w, mode)
     y = torch.empty((b, c, oh, ow), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
+    vec = _width(c, x.dtype, (x.data_ptr(), y.data_ptr()), width)
     lib = build.load()
     with torch.cuda.device(x.device):
         err = lib.metro_maxpool3x3s2(
-            x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, h, w, c, oh, ow, top, left, fill,
-            torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], vec, b, h, w, c, oh, ow, top, left,
+            fill, torch.cuda.current_stream().cuda_stream)
     build.check(err, "metro_maxpool3x3s2")
-    MODE_LAUNCHES[mode] += 1
+    _count("fwd", mode, vec)
     return y
 
 
@@ -122,9 +176,36 @@ def max_pool_bwd_plain(x: torch.Tensor, g: torch.Tensor, mode: str = "same") -> 
     return dx.contiguous(memory_format=torch.channels_last)
 
 
-def max_pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor, mode: str = "same") -> torch.Tensor:
+def chain_tap_weights(x: torch.Tensor, mode: str = "same") -> torch.Tensor:
+    """[B, C, OH, OW, 9] float32: the weight of each window's tap k (k = 3 dy
+    + dx) in the gradient of the shift-and-max chain, the backward kernel's
+    inner step written out: r_k * l_{k+1} * ... * l_8, with (l, r) = (1, 0),
+    (0, 1), (1/2, 1/2) where the running max is above, below or equal to the
+    tap, and (1, 1) where either is NaN. Used by the tests."""
+    _check(x)
+    _, _, h, w = x.shape
+    oh, ow, (top, bottom), (left, right), fill = pool_geometry(h, w, mode)
+    xp = F.pad(x.float(), (left, right, top, bottom), value=fill)
+    taps = [xp[:, :, dy: dy + 2 * oh: 2, dx: dx + 2 * ow: 2] for dy in range(3) for dx in range(3)]
+    m, ls, rs = taps[0], [None], [torch.ones_like(taps[0])]
+    for v in taps[1:]:
+        ls.append(torch.where(m == v, 0.5, torch.where(m < v, 0.0, 1.0)))
+        rs.append(torch.where(m == v, 0.5, torch.where(m > v, 0.0, 1.0)))
+        m = torch.where((v > m) | torch.isnan(v), v, m)
+    weights, s = [None] * 9, torch.ones_like(m)
+    for k in range(8, -1, -1):
+        weights[k] = rs[k] * s
+        if k:
+            s = s * ls[k]
+    return torch.stack(weights, -1)
+
+
+def max_pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor, mode: str = "same",
+                      width: int | None = None) -> torch.Tensor:
     """Launch the backward kernel (csrc/maxpool3x3s2_bwd.cu): dx for x and
-    the output gradient g, channels_last, in x's dtype."""
+    the output gradient g, channels_last, in x's dtype; `width` as in
+    `max_pool_cuda`."""
+    global GRAD_COPIES
     if not (x.is_cuda and g.is_cuda):
         raise ValueError(f"max_pool_bwd_cuda needs CUDA tensors, got {x.device}, {g.device}")
     _check(x)
@@ -135,15 +216,18 @@ def max_pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor, mode: str = "same") -> t
     if tuple(g.shape) != (b, c, oh, ow) or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"pool gradient {g.dtype} {tuple(g.shape)} does not fit the "
                          f"output {x.dtype} {(b, c, oh, ow)}")
-    g = g.contiguous(memory_format=torch.channels_last)
+    if not g.is_contiguous(memory_format=torch.channels_last):
+        g = g.contiguous(memory_format=torch.channels_last)
+        GRAD_COPIES += 1
     dx = torch.empty_like(x, memory_format=torch.channels_last)
+    vec = _width(c, x.dtype, (x.data_ptr(), g.data_ptr(), dx.data_ptr()), width)
     lib = build.load()
     with torch.cuda.device(x.device):
         err = lib.metro_maxpool3x3s2_bwd(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), _DTYPES[x.dtype], b, h, w, c, oh, ow,
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), _DTYPES[x.dtype], vec, b, h, w, c, oh, ow,
             top, left, fill, torch.cuda.current_stream().cuda_stream)
     build.check(err, "metro_maxpool3x3s2_bwd")
-    MODE_BWD_LAUNCHES[mode] += 1
+    _count("bwd", mode, vec)
     return dx
 
 

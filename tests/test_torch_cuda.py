@@ -293,3 +293,109 @@ def test_tiny_family_serving_on_card_matches_cpu(cuda, family):
     for key in want:
         # float32 with TF32 off: other summation orders only
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=1e-2)
+
+
+# ------------------------------------------- the pool kernels' two variants
+def _pool_case(kind, shape, dtype, device, seed=0):
+    """A channels_last pool input: "random", "nan" (random with ~5% NaN),
+    "relu" (whole windows tie at 0), "negative" (keras border windows
+    return their 0 pad)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "relu":
+        x = _smooth_relu(shape, device)
+    else:
+        x = torch.randn(shape, generator=gen, device=device)
+        if kind == "nan":
+            x[torch.rand(shape, generator=gen, device=device) < 0.05] = float("nan")
+        elif kind == "negative":
+            x = -x.abs() - 0.5
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _widths(c, dtype):
+    vec = pool.vector_width(c, dtype, 0)
+    return [vec, 1] if vec > 1 else [1]
+
+
+def _launched(way, width, fn):
+    before = dict(pool.VARIANT_LAUNCHES[way])
+    out = fn()
+    want = {k: before[k] + (k == pool.variant(width)) for k in before}
+    assert pool.VARIANT_LAUNCHES[way] == want
+    return out
+
+
+SIZES = {"even": (16, 12), "odd": (15, 13)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", ["even", "odd"])
+@pytest.mark.parametrize("c", [64, 24, 8, 5])
+@pytest.mark.parametrize("mode", ["same", "torch", "keras"])
+def test_pool_forward_variants_bit_exact(cuda, mode, c, size, dtype):
+    shape = (2, c, *SIZES[size])
+    for kind in ("random", "nan", "relu", "negative"):
+        x = _pool_case(kind, shape, dtype, cuda)
+        want = pool.max_pool_plain(x, mode)
+        nan = torch.isnan(want)
+        for width in _widths(c, dtype):
+            got = _launched("fwd", width, lambda: pool.max_pool_cuda(x, mode, width=width))
+            # max is exact: equal value for value, NaN where the plain version has NaN
+            assert torch.equal(torch.isnan(got), nan), (kind, width)
+            assert torch.equal(got[~nan], want[~nan]), (kind, width)
+        assert kind != "nan" or bool(nan.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", ["even", "odd"])
+@pytest.mark.parametrize("c", [64, 24, 8, 5])
+@pytest.mark.parametrize("mode", ["same", "torch", "keras"])
+def test_pool_backward_variants_match_plain(cuda, mode, c, size, dtype):
+    shape = (2, c, *SIZES[size])
+    for kind in ("random", "nan", "relu", "negative"):
+        x = _pool_case(kind, shape, dtype, cuda, seed=1)
+        oh, ow = pool.pool_geometry(*shape[2:], mode)[:2]
+        g = torch.randn(shape[0], c, oh, ow, device=cuda).to(dtype)
+        want = pool.max_pool_bwd_plain(x.float(), g.float(), mode)
+        for width in _widths(c, dtype):
+            got = _launched("bwd", width, lambda: pool.max_pool_bwd_cuda(x, g, mode, width=width))
+            again = pool.max_pool_bwd_cuda(x, g, mode, width=width)
+            bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[dtype]
+            assert torch.equal(got.view(bits), again.view(bits))  # no atomics
+            err = (got.float() - want).abs()
+            if dtype == torch.float32:  # the same power-of-two weights, float32 sums
+                assert float(err.max()) <= 1e-6, (kind, width)
+            else:  # within one bf16 ulp of the float32 sum
+                assert bool((err <= want.abs() * 2 ** -7).all()), (kind, width)
+
+
+@pytest.mark.parametrize("mode", ["torch", "keras"])
+def test_pool_backward_reaches_the_last_row_of_an_even_size(cuda, mode):
+    # torch/keras, even size: the last input row is reached by window row
+    # OH - 1 only (its tap row 2); its home row OH has no window of its own
+    shape = (2, 64, 16, 12)
+    x = _pool_case("relu", shape, torch.bfloat16, cuda)
+    g = torch.zeros(2, 64, 8, 6, device=cuda)
+    g[:, :, -1] = torch.randn(2, 64, 6, device=cuda)
+    g[:, :, :, -1] = torch.randn(2, 64, 8, device=cuda)
+    g = g.to(torch.bfloat16)
+    want = pool.max_pool_bwd_plain(x.float(), g.float(), mode)
+    assert bool((want[:, :, -1] != 0).any()) and bool((want[:, :, :, -1] != 0).any())
+    for width in (8, 1):
+        got = pool.max_pool_bwd_cuda(x, g, mode, width=width).float()
+        assert bool(((got - want).abs() <= want.abs() * 2 ** -7).all())
+
+
+def test_pool_picks_the_scalar_variant_for_unaligned_tensors(cuda):
+    # a view 2 elements into its storage: C=64 bf16 but not 16-byte aligned
+    base = torch.randn(2 * 64 * 16 * 12 + 2, device=cuda).to(torch.bfloat16)
+    x = base[2:].view(2, 16, 12, 64).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 16 != 0
+    assert pool.vector_width(64, torch.bfloat16, x.data_ptr()) == 1
+    xr = x.clone().requires_grad_(True)  # the clone is aligned again
+    y = _launched("fwd", 1, lambda: pool.stem_max_pool(x))
+    assert torch.equal(y, pool.max_pool_plain(x))
+    y = _launched("fwd", 8, lambda: pool.stem_max_pool(xr))
+    _launched("bwd", 8, lambda: y.backward(torch.ones_like(y)))
+    with pytest.raises(ValueError, match="width"):
+        pool.max_pool_cuda(x, width=8)
