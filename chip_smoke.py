@@ -8,17 +8,26 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
 `build/kernels/`, then runs in phases:
 
   1 env      torch and CUDA versions, the card's name and power limit
-  2 build    nvcc build of the kernel library, in seconds
+  2 build    nvcc build of the kernel library, in seconds; registers and
+             spills of the crop warp and row-select kernels, and the
+             row select's tensor-core instructions (HGMMA) in its SASS
   3 k3       stem max pool kernel == its plain version, bit for bit (NaN
              where it has NaN), in both variants: 16-byte vectors and scalar
-  4 k1       crop warp kernel against its plain version (atol 0.05 in [0,255])
+  4 k1       crop warp kernel in each form (epilogue none, unit, normalize
+             in float32 and bf16), crop and frame mode, against the plain
+             chain (0.05 in [0,255], scaled to the form's units; bf16 plus
+             one bf16 ulp), and the fused form bit for bit equal to the
+             unfused kernel output through the plain epilogue
   5 serve    the serving path at the default Config() (ResNet-50 @ 256,
              bf16, flip TTA, full reconstruction) with seeded random
              weights: 3 crop-in and 3 tile-in requests of 64; both kernels
-             must have launched, the pool in its 16-byte variant
+             must have launched, the pool in its 16-byte variant and the
+             warp with its bf16 normalize epilogue only
   6 parity   the same path in float32 (TF32 off) on the card and on the CPU
-  7 time     kernels against their plain versions, and crops/s of the
-             serving forms, with CUDA events (informative only)
+  7 time     kernels against their plain versions (device time by the
+             profiler, and CUDA events per call), every K1 form beside the
+             unfused chain, crops/s of the serving forms, and a profiler
+             breakdown of tile-in serving (informative only)
   8 k2       occluder paste kernel against its plain version (atol 1e-5)
   9 k3-bwd   stem pool backward kernel against the plain backward on random,
              tied, post-ReLU and all-negative inputs, in both variants:
@@ -28,7 +37,8 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              + 32 2D rows, 512^2 tiles) through `train()`: 10 steps with a
              checkpoint at 5, a resume from 5 to 10, then 20 steps on one
              batch whose loss must fall; all four kernels must have launched,
-             the pool's forward and backward in their 16-byte variants
+             the pool's forward and backward in their 16-byte variants, the
+             warp with its unit epilogue only
  11 t-parity one float32 train step (TF32 off) on the card and on the CPU
  12 t-time   K2, K3-bwd (random and post-ReLU input) and the bf16 train step
              at B=96 (informative), with a profiler breakdown of the step
@@ -55,7 +65,8 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              of (a) on the card and on the CPU
  16 probes   each probe kernel == its plain version, then the probes' own
              entry points (`probes.gather.main`, `probes.prims.main`) with
-             their times and rates
+             their times and rates; the row select's time by split, and one
+             `torch.bmm` over the stacked rolls as its yardstick
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -63,7 +74,10 @@ record holds its launches on the path that runs it, its time, its plain
 version's, its bound (the larger of bytes moved over the card's 3.35 TB/s
 and operations over the card's peak for their type) and, where one PyTorch
 call computes the same function, that call's time; a pool record also holds
-its share of the bound and its time before its redesign. Without CUDA it exits
+its share of the bound. The crop warp's and the row select's `ms` is device
+time from the profiler (their wrappers' host work outlasts the kernel, so
+CUDA events around back-to-back calls time the host; that reading is
+`call_ms`); the other kernels' `ms` is by CUDA events. Without CUDA it exits
 non-zero at once and prints no result. It imports no jax.
 """
 from __future__ import annotations
@@ -177,6 +191,36 @@ def warp_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[ok] - b[ok]).abs().max())
 
 
+WARP_FORM_NONE = ("none", torch.float32)
+# [0,255] -> the form's units; a bf16 form also rounds once more to bf16
+WARP_FORM_SCALE = {"none": 1.0, "unit": 1 / 255, "normalize": 2 / 255}
+
+
+def fmt_forms(values: dict, spec: str = ".2e") -> str:
+    return ", ".join(f"{e} {str(d)[6:]} {v:{spec}}" for (e, d), v in values.items())
+
+
+def check_warp_forms(warp, args, what: str) -> dict:
+    """Every K1 form on `args` against the plain chain: within WARP_TOL
+    scaled to the form's units (a bf16 form: plus one bf16 ulp at 1.0,
+    2^-7), NaN where it has NaN; and bit for bit equal to the unfused kernel
+    output through the plain epilogue. -> {form: max abs err}."""
+    unfused = warp.warp_images_cuda(*args)
+    errs = {}
+    for epi, dt in warp.FORMS:
+        got = warp.warp_images_cuda(*args, epilogue=epi, out_dtype=dt)
+        want = warp.warp_images_plain(*args, epilogue=epi, out_dtype=dt)
+        torch.cuda.synchronize()
+        tol = WARP_TOL * WARP_FORM_SCALE[epi] + (2 ** -7 if dt == torch.bfloat16 else 0.0)
+        errs[epi, dt] = warp_err(got.float(), want.float())
+        if errs[epi, dt] > tol:
+            fail(f"K1 ({epi}, {dt}) off its plain chain by {errs[epi, dt]} > {tol} ({what})")
+        if not same_bits(got, warp.apply_epilogue(unfused, epi, dt)):
+            fail(f"K1 ({epi}, {dt}): the fused epilogue differs from the unfused kernel "
+                 f"output through the plain epilogue ({what})")
+    return errs
+
+
 def bound(n_bytes: float, n_ops: float, op_type: str = "float32"):
     """-> (bound_ms, bound_by): the least time the card could take to move
     `n_bytes` (every input read once, every output written once) or to do
@@ -208,7 +252,56 @@ def tie_count(x: torch.Tensor, y: torch.Tensor, mode: str = "same", pad_only: bo
     return total
 
 
-def profile_breakdown(fn, steps: int) -> str:
+def device_ms(fn, kernel: str, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of a launch of the kernels whose name holds `kernel`,
+    by the profiler over `iters` calls of fn (each launches one). The
+    profiler may miss a launch at the start of its window, so the mean is
+    over the launches it recorded, at least half of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and kernel in evt.key:
+            total += evt.self_device_time_total
+            count += evt.count
+    if not iters / 2 <= count <= iters:
+        fail(f"the profiler saw {count} launches of {kernel} in {iters} calls")
+    return total / 1e3 / count
+
+
+def kernel_resources(cuobjdump: str, lib_path, names):
+    """-> ({name: ["REG:n STACK:n LOCAL:n", ...]}, {name: HGMMA count}) for
+    the kernels of the built library whose mangled names hold one of
+    `names` (one entry a template instance), from cuobjdump."""
+    usage = subprocess.run([cuobjdump, "--dump-resource-usage", str(lib_path)],
+                           capture_output=True, text=True, timeout=120, check=True).stdout
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    found = {}
+    lines = usage.splitlines()
+    for i, line in enumerate(lines):
+        for name in names:
+            if "Function " in line and name in line and i + 1 < len(lines):
+                regs = " ".join(f for f in lines[i + 1].split() if f.split(":")[0] in
+                                ("REG", "STACK", "LOCAL"))
+                found.setdefault(name, []).append(regs)
+    hgmma = {}
+    for block in sass.split("Function : ")[1:]:
+        for name in names:
+            if name in block.split("\n", 1)[0]:
+                hgmma[name] = hgmma.get(name, 0) + block.count("HGMMA")
+    return found, hgmma
+
+
+def profile_breakdown(fn, steps: int, label: str = "[12 t-time] profiler, train step") -> str:
     """torch.profiler over `steps` calls of fn: device time per call, the
     device's busy share of the wall time, the eight aten ops with the most
     self device time and the port's own kernels, as shares of device time."""
@@ -230,13 +323,13 @@ def profile_breakdown(fn, steps: int) -> str:
             (kernels if evt.device_type == DeviceType.CUDA else ops).append((t, evt.key))
     total = sum(t for t, _ in kernels)
     if total == 0:
-        return "[12 t-time] profiler: no device time recorded"
+        return f"{label}: no device time recorded"
     names = ("maxpool3x3s2_bwd_kernel", "maxpool3x3s2_kernel", "occluder_paste", "warp_crop")
     ours = {n: sum(t for t, k in kernels if n in k) for n in names}
     ops.sort(reverse=True)
     top = "; ".join(f"{k} {t / total:.1%}" for t, k in ops[:8])
     mine = "; ".join(f"{n} {t / total:.2%}" for n, t in ours.items())
-    return (f"[12 t-time] profiler, train step: device {total / 1e3 / steps:.2f} ms/step, "
+    return (f"{label}: device {total / 1e3 / steps:.2f} ms a call, "
             f"busy {total / 1e6 / wall:.1%} of wall; top ops by self device time: {top}; "
             f"port kernels: {mine}")
 
@@ -337,6 +430,14 @@ def same_values(got, want) -> bool:
             and torch.equal(got[~nan], want[~nan]))
 
 
+def same_bits(got, want) -> bool:
+    """Equal bit for bit, NaN where the other has NaN."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(torch.isnan(got), nan)
+            and torch.equal(bits(got[~nan]), bits(want[~nan])))
+
+
 def check_pool_fwd(pool, x, mode="same"):
     """Forward kernel, in every variant x allows, against the plain version,
     value for value (NaN where it has NaN). -> (max abs err, variants)."""
@@ -378,6 +479,16 @@ def check_pool_bwd(pool, x, g, mode):
         worst = max(worst, float(err.max()))
         notes.append(f"{pool.variant(width)} {note}")
     return worst, "; ".join(notes) + ", repeat launches bitwise equal"
+
+
+def check_warp_forms_launched(where: str, form) -> None:
+    """Fail unless every warp launch counted since the last reset was of
+    `form` (and some were)."""
+    from metro_pose3d_tpu_torch.ops import warp
+
+    counts = warp.KERNEL_LAUNCHES
+    if counts[form] == 0 or sum(counts.values()) != counts[form]:
+        fail(f"{where}: the warp did not launch its {form} form only: {counts}")
 
 
 def check_pool_variants(where: str, ways=("fwd",)) -> None:
@@ -522,7 +633,7 @@ def phase_families_serving(rng, dev, card):
                       crop_params(rng, BATCH, TILE, side, "normal")[3]) for _ in range(3)]
         tile_reqs = [tile_batch(rng, BATCH, TILE, side) for _ in range(3)]
         pool.reset_launches()
-        warp.LAUNCHES = 0
+        warp.reset_launches()
         outs = [est.predict_crops(c, i) for c, i in crop_reqs]
         outs += [est.predict_tiles(b) for b in tile_reqs]
         torch.cuda.synchronize()
@@ -651,7 +762,8 @@ def phase_families_training(rng, dev, card, bank_np):
                          f"{len(trunk)} in the file, {len(warm)} in the trunk")
                 del warm
             pool.reset_launches()
-            warp.LAUNCHES = occlusion.LAUNCHES = 0
+            warp.reset_launches()
+            occlusion.LAUNCHES = 0
             t0 = time.perf_counter()
             state = train(cfg, iter(host), occluder_bank=bank_np, max_steps=steps)
             torch.cuda.synchronize()
@@ -703,6 +815,36 @@ def phase_families_training(rng, dev, card, bank_np):
     return launches
 
 
+def rowsel_times(prims, args, want) -> dict:
+    """The row select's device time (default split, and by split), its time a
+    call by CUDA events, and the library yardstick: one `torch.bmm` of the
+    rolled copies stacked as [B, reps*R, 160] @ [B, 160, 128] in float32 with
+    TF32 off (exact: integer sums below 2^24), then its `.sum` over the reps,
+    timed apart."""
+    from metro_pose3d_tpu_torch.probes import time_ms
+
+    p, s = args
+    b, rows, _ = p.shape
+    call = lambda: prims.rowsel_cuda(p, s)  # noqa: E731
+    out = {"ms": device_ms(call, "rowsel"), "call_ms": time_ms(call),
+           "split_ms": {k: device_ms(lambda: prims.rowsel_cuda(p, s, split=k), "rowsel")
+                        for k in (1, 2, 4, 8)}}
+    stacked = torch.stack([torch.roll(p.float(), k, 1) for k in range(prims.REPS)], 1)
+    stacked = stacked.reshape(b, prims.REPS * rows, p.shape[2])
+    sf = s.float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        prod = torch.bmm(stacked, sf).reshape(b, prims.REPS, rows, s.shape[2])
+        if not torch.equal(prod.sum(1), want):
+            fail("the bmm over the stacked rolls differs from the row select")
+        out["library_ms"] = time_ms(lambda: torch.bmm(stacked, sf))
+        out["library_sum_ms"] = time_ms(lambda: prod.sum(1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
 def phase_probes(dev, card):
     """16: each probe kernel against its plain version (exact), then the
     probes' entry points. -> list of kernel records."""
@@ -713,6 +855,7 @@ def phase_probes(dev, card):
            "cols_f32": "scripts/exp_pallas_gather.py:110"}
     records = []
     src = "metro_pose3d_tpu_torch/csrc/probes.cu"
+    sources = {"rowsel": "metro_pose3d_tpu_torch/csrc/rowsel_mma.cu"}
 
     def max_abs_err(got, want):
         return float((got.double() - want.double()).abs().max())
@@ -763,16 +906,28 @@ def phase_probes(dev, card):
         ops = 2 * 160 * n_work if kernel == "rowsel" else n_work  # multiply-adds, or adds
         bms, by = bound(nbytes(*args, got), ops, "bf16" if kernel == "rowsel" else "float32")
         r = by_kernel.setdefault(kernel, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                          "bound_ms": 0.0, "bound_by": by})
+                                          "bound_ms": 0.0, "bound_by": by, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += time_ms(lambda: cuda_fn(*args))
+        if kernel == "rowsel":
+            r.update(rowsel_times(prims, args, got))
+        else:
+            r["ms"] += time_ms(lambda: cuda_fn(*args))
         r["plain_ms"] += time_ms(lambda: plain_fn(*args), iters=3, warmup=1)
         r["bound_ms"] += bms
         print(f"[16 probes] {name}: equal to its plain version")
+        if kernel == "rowsel":
+            print(f"[16 probes] rowsel {tuple(args[0].shape)}@{tuple(args[1].shape)} "
+                  f"x{prims.REPS}: "
+                  f"kernel {r['ms']:.4f} ms device time (split {prims.ROWSEL_SPLIT}; "
+                  f"{r['call_ms']:.4f} ms a call by CUDA events), by split "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in r["split_ms"].items())
+                  + f"; bound {bms:.4f} ms ({by}); torch.bmm over the stacked rolls (float32, "
+                  f"TF32 off) {r['library_ms']:.4f} ms, then its .sum over the reps "
+                  f"{r['library_sum_ms']:.4f} ms  [{card}]")
     for kernel, r in by_kernel.items():
-        records.append({"name": f"probe_{kernel}", "route": "cuda", "source": src,
-                        "replaces": f"scripts/exp_pallas_prims.py:{lines[kernel]}",
-                        **r, "library_ms": None})
+        records.append({"name": f"probe_{kernel}", "route": "cuda",
+                        "source": sources.get(kernel, src),
+                        "replaces": f"scripts/exp_pallas_prims.py:{lines[kernel]}", **r})
 
     # the probes' own entry points, counting launches
     gather.LAUNCHES.clear()
@@ -821,6 +976,12 @@ def main() -> int:
            else "reused from an earlier build of the same sources")
     print(f"[2 build] kernels {how} (load {time.perf_counter() - t0:.1f} s) "
           f"-> {build.build().parent}")
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    usage, hgmma = kernel_resources(cuobjdump, build.build(), ("warp_crop", "rowsel"))
+    if not hgmma.get("rowsel"):
+        fail(f"no HGMMA instruction in the row select's SASS: {hgmma}")
+    print(f"[2 build] cuobjdump: warp_crop instances {usage.get('warp_crop')}, rowsel "
+          f"{usage.get('rowsel')}; HGMMA instructions in the rowsel SASS: {hgmma['rowsel']}")
 
     # 3 K3: pool kernel == plain version, bit for bit
     pool_err = 0.0
@@ -837,34 +998,34 @@ def main() -> int:
         pool_err = max(pool_err, err)
         print(f"[3 k3] pool {tuple(shape)} {dtype} {kind}: bit-exact ({variants})")
 
-    # 4 K1: warp kernel against its plain version
+    # 4 K1: every form of the warp kernel against its plain chain, and the
+    # fused epilogue against the unfused kernel output, bit for bit
     warp_max = 0.0
     cases = {kind: tile_batch(rng, BATCH, TILE, 256, kind) for kind in ("normal", "rot90", "behind")}
     for kind, batch in cases.items():
         t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         args = (t["source"], t["warp_h"], t["warp_k"], t["warp_dist"], 256)
-        got, want = warp.warp_images_cuda(*args), warp.warp_images_plain(*args)
-        torch.cuda.synchronize()
-        err = warp_err(got, want)
+        errs = check_warp_forms(warp, args, f"{kind} crops")
+        warp_max = max(warp_max, errs[WARP_FORM_NONE])
         _, in_front = warp.warp_coords(t["warp_h"], t["warp_k"], t["warp_dist"], 256)
         behind = float((~in_front).float().mean())
-        if err > WARP_TOL:
-            fail(f"K1 warp kernel off its plain version by {err} > {WARP_TOL} ({kind})")
         if kind == "behind" and behind == 0.0:
             fail("the behind-camera case has no ray behind the camera")
-        warp_max = max(warp_max, err)
-        print(f"[4 k1] warp {kind} B={BATCH} {TILE}^2->256^2: max abs err {err:.2e} "
-              f"(tol {WARP_TOL}), behind-camera share {behind:.3f}")
+        print(f"[4 k1] warp {kind} B={BATCH} {TILE}^2->256^2, behind-camera share {behind:.3f}: "
+              f"max abs err by form {fmt_forms(errs)}; fused == unfused bit for bit")
     frame = torch.from_numpy(rng.randint(0, 256, (1, 720, 1280, 3)).astype(np.uint8)).to(dev)
     h, k, d, _ = (torch.from_numpy(a).to(dev) for a in crop_params(rng, 16, 720, 256, "normal"))
     idx = torch.zeros(16, dtype=torch.int32, device=dev)
-    got = warp.warp_images_cuda(frame, h, k, d, 256, idx)
-    want = warp.warp_images_plain(frame, h, k, d, 256, idx)
-    err = warp_err(got, want)
-    if err > WARP_TOL:
-        fail(f"K1 warp kernel off its plain version by {err} in frame mode")
-    warp_max = max(warp_max, err)
-    print(f"[4 k1] warp shared 1280x720 frame, 16 crops: max abs err {err:.2e}")
+    errs = check_warp_forms(warp, (frame, h, k, d, 256, idx), "a shared frame")
+    warp_max = max(warp_max, errs[WARP_FORM_NONE])
+    idx[-1] = 7  # out of range: a zero crop through the epilogue
+    for epi, dt in warp.FORMS:
+        got = warp.warp_images_cuda(frame, h, k, d, 256, idx, epi, dt)[-1]
+        if not same_bits(got, warp.apply_epilogue(torch.zeros_like(got, dtype=torch.float32),
+                                                   epi, dt)):
+            fail(f"K1 ({epi}, {dt}): an out-of-range source index did not give a zero crop")
+    print(f"[4 k1] warp shared 1280x720 frame, 16 crops: max abs err by form {fmt_forms(errs)}; "
+          f"fused == unfused bit for bit; an out-of-range index gives the epilogue of zeros")
 
     # 5 serve: the main path, counting kernel launches
     cfg = Config()
@@ -875,11 +1036,12 @@ def main() -> int:
                   crop_params(rng, BATCH, TILE, side, "normal")[3]) for _ in range(3)]
     tile_reqs = [tile_batch(rng, BATCH, TILE, side) for _ in range(3)]
     pool.reset_launches()
-    warp.LAUNCHES = 0
+    warp.reset_launches()
     outs = [est.predict_crops(c, i) for c, i in crop_reqs]
     outs += [est.predict_tiles(b) for b in tile_reqs]
     torch.cuda.synchronize()
     launches = {"pool": pool.MODE_LAUNCHES["same"], "warp": warp.LAUNCHES}
+    serve_forms = dict(warp.KERNEL_LAUNCHES)
     for out in outs:
         for key, shape in (("pose3d_rootrel", (BATCH, 17, 3)), ("pose2d_px", (BATCH, 17, 2)),
                            ("pose3d_abs", (BATCH, 17, 3))):
@@ -888,9 +1050,10 @@ def main() -> int:
     if launches["pool"] == 0 or launches["warp"] == 0:
         fail(f"the serving path did not launch every kernel: {launches}")
     check_pool_variants("serving")
+    check_warp_forms_launched("serving", ("normalize", torch.bfloat16))
     print(f"[5 serve] 3 crop-in + 3 tile-in requests of {BATCH} (R50@256 bf16, TTA, "
           f"full reconstruction): outputs finite, launches {launches}, pool variants "
-          f"{pool.VARIANT_LAUNCHES['fwd']}")
+          f"{pool.VARIANT_LAUNCHES['fwd']}, warp launches by form {fmt_forms(serve_forms, 'd')}")
 
     # 6 parity: float32 on the card against float32 on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -935,14 +1098,25 @@ def main() -> int:
     del xp
     t = {k: torch.from_numpy(v).to(dev) for k, v in tile_reqs[0].items()}
     wargs = (t["source"], t["warp_h"], t["warp_k"], t["warp_dist"], side)
-    warp_ms, warp_plain_ms = time_ms(lambda: warp.warp_images_cuda(*wargs)), time_ms(
-        lambda: warp.warp_images_plain(*wargs))
     # each tile, its parameters and each output pixel once; about 60 float32
     # operations for an output pixel's ray, distortion and bilinear blend
     warp_out = BATCH * side * side * 3
-    warp_bound = bound(nbytes(*wargs[:4]) + 4 * warp_out, 60 * warp_out / 3)
-    print(f"[7 time] K1 warp B={BATCH} {TILE}^2->256^2: kernel {warp_ms:.4f} ms, "
-          f"plain {warp_plain_ms:.4f} ms, bound {warp_bound[0]:.4f} ms  [{card}]")
+    warp_forms = {}
+    for epi, dt in warp.FORMS:
+        call = lambda: warp.warp_images_cuda(*wargs, epilogue=epi, out_dtype=dt)  # noqa: E731
+        r = warp_forms[epi, dt] = {
+            "ms": device_ms(call, "warp_crop"), "call_ms": time_ms(call),
+            "plain_ms": time_ms(lambda: warp.warp_images_plain(*wargs, epilogue=epi,
+                                                               out_dtype=dt)),
+            # the unfused chain: the kernel's [0,255] output through the plain epilogue
+            "unfused_ms": time_ms(lambda: warp.apply_epilogue(warp.warp_images_cuda(*wargs),
+                                                              epi, dt))}
+        bms, by = bound(nbytes(*wargs[:4]) + warp_out * dt.itemsize, 60 * warp_out / 3)
+        r.update(bound_ms=bms, bound_by=by, bound_share=bms / r["ms"])
+        print(f"[7 time] K1 warp ({epi}, {str(dt)[6:]}) B={BATCH} {TILE}^2->256^2: kernel "
+              f"{r['ms']:.4f} ms device time ({r['call_ms']:.4f} ms a call by CUDA events), "
+              f"bound {bms:.4f} ms ({by}, {bms / r['ms']:.0%}), kernel + plain epilogue "
+              f"{r['unfused_ms']:.4f} ms, plain chain {r['plain_ms']:.4f} ms  [{card}]")
     from metro_pose3d_tpu_torch.evaluation.engine import make_predict_fn
 
     for form in ("crops", "tiles"):
@@ -961,6 +1135,9 @@ def main() -> int:
             peak = torch.cuda.max_memory_allocated() / 2**30
             print(f"[7 time] serve {form}-in bf16 {'TTA' if flip_tta else 'no TTA'} B={b}: "
                   f"{ms:.3f} ms/batch, {b / ms * 1e3:.1f} crops/s, peak {peak:.2f} GiB  [{card}]")
+            if form == "tiles" and flip_tta:
+                print(profile_breakdown(lambda: fn(*args), steps=5,
+                                        label=f"[7 time] profiler, tile-in TTA B={b}"))
 
     del model, est, fn, args
     torch.cuda.empty_cache()
@@ -1025,7 +1202,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         logdir = os.path.join(tmp, "run")
         pool.reset_launches()
-        warp.LAUNCHES = occlusion.LAUNCHES = 0
+        warp.reset_launches()
+        occlusion.LAUNCHES = 0
         t0 = time.perf_counter()
         state, hist = run(logdir, {}, iter(host), 10)
         first_leg = time.perf_counter() - t0
@@ -1043,6 +1221,8 @@ def main() -> int:
         if any(v == 0 for v in train_launches.values()):
             fail(f"the training path did not launch every kernel: {train_launches}")
         check_pool_variants("training", ("fwd", "bwd"))
+        check_warp_forms_launched("training", ("unit", torch.float32))
+        train_forms = dict(warp.KERNEL_LAUNCHES)
         grad_copies = pool.GRAD_COPIES
         if state.step != 10 or resumed.step != 10 or warp.LAUNCHES - warp_before != 5:
             fail(f"resume: steps {state.step}, {resumed.step}, "
@@ -1058,6 +1238,7 @@ def main() -> int:
         print(f"[10 train] Config() R50@256 bf16, B={N3D}+{N2D}: 10 steps in {first_leg:.1f} s "
               f"(loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, finite), checkpoint at 5, "
               f"resumed 5 -> 10 (step-10 loss rel diff {d10:.1e}); launches {train_launches}, "
+              f"warp launches by form {fmt_forms(train_forms, 'd')}, "
               f"pool variants {pool.VARIANT_LAUNCHES}; the gradient reaching the pool was "
               + ("channels_last at every backward launch" if grad_copies == 0 else
                  f"not channels_last at {grad_copies} of {train_launches['pool_bwd']} backward "
@@ -1156,6 +1337,7 @@ def main() -> int:
 
 
     pallas_pool = "metro_pose3d_tpu/ops/pool_pallas.py:90"
+    none = warp_forms[WARP_FORM_NONE]
     mode_launches = {
         ("torch", "fwd"): fam_launches["a_torchvision_r50"]["pool_torch"]
         + fam_launches["c_torchvision_r34"]["pool_torch"] + ftrain_launches["pool_torch"],
@@ -1181,8 +1363,11 @@ def main() -> int:
                                       "ms_scalar") if k in r})
           for (mode, way), r in modes.items()],
         kernel("warp_crop", "warp_crop.cu", "metro_pose3d_tpu/ops/warp_pallas.py:415",
-               launches["warp"] + train_launches["warp"], warp_max, warp_ms, warp_plain_ms,
-               warp_bound, None),
+               launches["warp"] + train_launches["warp"], warp_max, none["ms"], none["plain_ms"],
+               (none["bound_ms"], none["bound_by"]), None, call_ms=none["call_ms"],
+               bound_share=none["bound_share"],
+               forms={f"{e}_{str(d)[6:]}": {**r, "launches": serve_forms[e, d] + train_forms[e, d]}
+                      for (e, d), r in warp_forms.items()}),
         kernel("occluder_paste", "occluder_paste.cu", "metro_pose3d_tpu/ops/warp_pallas.py:507",
                train_launches["occluder"], occ_err, occ_ms, occ_plain_ms, occ_bound, None),
         *probe_records,

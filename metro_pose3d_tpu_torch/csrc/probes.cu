@@ -4,21 +4,20 @@
 //
 // Replaces: the Pallas probe kernels of scripts/exp_pallas_gather.py
 // (`build_sublane`, `build_lane`, `build_lane_f32`), scripts/exp_pallas_gather2.py
-// (`probe`) and scripts/exp_pallas_prims.py (`build_lane_loop`, `build_rowsel`,
-// `build_roll`, `build_dynslice`). Each of those runs one batch element per
-// grid step on a block held in VMEM; here a thread block takes a tile of one
-// batch element, and where the TPU kernel loops over a block held on chip the
-// tile is staged in shared memory once and the loop reads it from there.
+// (`probe`) and scripts/exp_pallas_prims.py (`build_lane_loop`, `build_roll`,
+// `build_dynslice`; its `build_rowsel` is csrc/rowsel_mma.cu). Each of those
+// runs one batch element per grid step on a block held in VMEM; here a thread
+// block takes a tile of one batch element, and where the TPU kernel loops over
+// a block held on chip the tile is staged in shared memory once and the loop
+// reads it from there.
 //
 // What bounds them on the card: the gathers move 12 bytes per element (value,
 // index, result) and are bound by bytes; the looped probes do 64 shared-memory
 // reads per element they load and are bound by operations (shared-memory
-// reads and integer adds; for the row select, multiply-adds outside the
-// tensor cores: the product is written as a plain loop).
+// reads and integer adds).
 //
-// All data is 32 bits wide except the row select's bf16 operands, so the
-// int32 and float32 gathers share one kernel that copies 32-bit words.
-#include <cuda_bf16.h>
+// All data is 32 bits wide, so the int32 and float32 gathers share one kernel
+// that copies 32-bit words.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,34 +59,6 @@ __global__ void lane_loop_kernel(const int* __restrict__ x, const int* __restric
     int acc = 0;
     for (int k = 0; k < reps; ++k) acc += trow[(start + k) % W];
     out[base + e] = acc;
-  }
-}
-
-// out[b] = sum_{k<reps} roll(P[b], k, rows) @ S[b]: P [R, K] one-hot bf16,
-// S [K, N] bf16, out [R, N] float32; roll(P, k)[r] = P[(r - k) mod R]. The
-// product is a plain loop over K with S held in shared memory; a warp shares
-// its row of P, so those loads are broadcasts.
-constexpr int kSelK = 160, kSelN = 128;
-
-__global__ void rowsel_kernel(const __nv_bfloat16* __restrict__ p,
-                              const __nv_bfloat16* __restrict__ s, float* __restrict__ out,
-                              int R, int reps) {
-  __shared__ unsigned short slab[kSelK * kSelN];  // bf16 bits, 40 KB
-  const int b = blockIdx.x;
-  const unsigned short* sb = (const unsigned short*)s + (int64_t)b * kSelK * kSelN;
-  const __nv_bfloat16* pb = p + (int64_t)b * R * kSelK;
-  for (int e = threadIdx.x; e < kSelK * kSelN; e += blockDim.x) slab[e] = sb[e];
-  __syncthreads();
-  for (int e = threadIdx.x; e < R * kSelN; e += blockDim.x) {
-    const int r = e / kSelN, c = e % kSelN;
-    float acc = 0.0f;
-    for (int k = 0; k < reps; ++k) {
-      const __nv_bfloat16* prow = pb + (int64_t)(((r - k) % R + R) % R) * kSelK;
-      for (int j = 0; j < kSelK; ++j)
-        acc += __bfloat162float(prow[j]) *
-               __bfloat162float(__ushort_as_bfloat16(slab[j * kSelN + c]));
-    }
-    out[(int64_t)b * R * kSelN + e] = acc;
   }
 }
 
@@ -164,15 +135,6 @@ extern "C" int metro_probe_lane_loop(const void* x, const void* idx, void* out, 
   const dim3 grid((H + kLoopRows - 1) / kLoopRows, B);
   lane_loop_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>((const int*)x, (const int*)idx,
                                                                (int*)out, H, W, reps);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int metro_probe_rowsel(const void* p, const void* s, void* out, int B, int R, int K,
-                                  int N, int reps, void* stream) {
-  if (B == 0) return (int)cudaSuccess;
-  if (K != kSelK || N != kSelN || R < 1) return (int)cudaErrorInvalidValue;
-  rowsel_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)p, (const __nv_bfloat16*)s, (float*)out, R, reps);
   return (int)cudaGetLastError();
 }
 

@@ -100,7 +100,9 @@ def make_predict_fn(
 
     if from_tiles:
         def predict(model, batch):
-            crops = device_augment(batch, mcfg.proc_side, train=False)
+            # crops arrive in the model's compute dtype, so the flip, the
+            # concatenation and the layout change move that and nothing wider
+            crops = device_augment(batch, mcfg.proc_side, train=False, out_dtype=model.dtype)
             return forward(model, crops, batch["intrinsics"])
     else:
         def predict(model, crops_uint8, intrinsics):

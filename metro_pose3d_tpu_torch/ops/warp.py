@@ -8,17 +8,49 @@ Map for output pixel p = (x, y, 1) of crop b (`metro_pose3d_tpu/ops/warp.py`):
 then bilinear sampling with a zero border, and zero where the ray is not in
 front of the camera (ray.z <= 1e-9).
 
+An epilogue maps the float32 [0,255] samples to what the caller feeds on:
+    none       float32 [0,255]
+    unit       `x * (1/255)`, float32 [0,1] (the train leg, before the
+               occluder paste)
+    normalize  `normalize(x * (1/255))`, float32 or bf16 [-1,1] (serving)
+each step rounded in float32 as the unfused PyTorch chain rounds it.
+
 `warp_images` takes the plain PyTorch version for CPU tensors and launches
-the CUDA kernel (csrc/warp_crop.cu) for CUDA tensors. Both compute the
-exact direct map; the TPU's two-pass approximation is not carried over.
+the CUDA kernel (csrc/warp_crop.cu, the epilogue fused into its store) for
+CUDA tensors. Both compute the exact direct map; the TPU's two-pass
+approximation is not carried over.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from metro_pose3d_tpu_torch import reference_constants as C
 from metro_pose3d_tpu_torch.kernels import build
+from metro_pose3d_tpu_torch.ops.color import normalize
 
-LAUNCHES = 0  # kernel launches by `warp_images` on CUDA tensors
+EPILOGUES = ("none", "unit", "normalize")
+# (epilogue, output dtype) -> kernel launches on CUDA tensors. `LAUNCHES`
+# (the total) is a view of it.
+FORMS = (("none", torch.float32), ("unit", torch.float32), ("normalize", torch.float32),
+         ("normalize", torch.bfloat16))
+KERNEL_LAUNCHES = dict.fromkeys(FORMS, 0)
+# the epilogue's constants as PyTorch rounds the Python scalars of
+# `x * (1.0 / 255.0)` and `normalize`: float32 values
+UNIT = float(np.float32(1.0 / 255.0))
+SCALE = float(np.float32(255.0 * C.IMAGE_SCALE))
+OFFSET = float(np.float32(C.IMAGE_OFFSET))
+
+
+def __getattr__(name: str):
+    if name == "LAUNCHES":
+        return sum(KERNEL_LAUNCHES.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def reset_launches() -> None:
+    """Set every launch count of this module to 0."""
+    KERNEL_LAUNCHES.update(dict.fromkeys(KERNEL_LAUNCHES, 0))
 
 
 def distort_points(xn, yn, dist):
@@ -90,11 +122,29 @@ def bilinear_sample(images, coords, valid_mask=None, source_indices=None):
     return out
 
 
+def apply_epilogue(crops, epilogue: str = "none", out_dtype=torch.float32):
+    """The plain epilogue: float32 [0,255] crops -> the epilogue's units in
+    `out_dtype`, by the unfused chain the kernel's store reproduces."""
+    if epilogue != "none":
+        crops = crops * (1.0 / 255.0)
+    if epilogue == "normalize":
+        crops = normalize(crops)
+    return crops.to(out_dtype)
+
+
 def warp_images_plain(sources, h_mats, k_vecs, dists, out_side: int,
-                      source_indices=None):
-    """The direct map in plain PyTorch: [N,Hs,Ws,C] -> float32 [B,S,S,C]."""
+                      source_indices=None, epilogue: str = "none", out_dtype=torch.float32):
+    """The direct map in plain PyTorch, then the epilogue:
+    [N,Hs,Ws,C] -> [B,S,S,C] in `out_dtype`."""
     coords, in_front = warp_coords(h_mats, k_vecs, dists, out_side)
-    return bilinear_sample(sources, coords, in_front, source_indices)
+    return apply_epilogue(bilinear_sample(sources, coords, in_front, source_indices),
+                          epilogue, out_dtype)
+
+
+def _check_form(epilogue, out_dtype):
+    if (epilogue, out_dtype) not in KERNEL_LAUNCHES:
+        raise ValueError(f"warp epilogue {epilogue!r} in {out_dtype}: the forms are "
+                         f"{[(e, str(d)) for e, d in FORMS]}")
 
 
 def _check(sources, h_mats, k_vecs, dists, source_indices):
@@ -120,14 +170,16 @@ def _check(sources, h_mats, k_vecs, dists, source_indices):
 
 
 def warp_images_cuda(sources, h_mats, k_vecs, dists, out_side: int,
-                     source_indices=None):
-    """Launch the CUDA kernel (csrc/warp_crop.cu)."""
-    global LAUNCHES
+                     source_indices=None, epilogue: str = "none", out_dtype=torch.float32):
+    """Launch the CUDA kernel (csrc/warp_crop.cu) with its fused epilogue."""
     if not sources.is_cuda:
         raise ValueError(f"warp_images_cuda needs CUDA tensors, got {sources.device}")
     _check(sources, h_mats, k_vecs, dists, source_indices)
+    _check_form(epilogue, out_dtype)
     b = h_mats.shape[0]
     n, th, tw, _ = sources.shape
+    if th * tw * 3 >= 2**31:
+        raise ValueError(f"warp: a {th}x{tw} source is too large for 32-bit offsets")
     dev = sources.device
     src = sources.contiguous()
     params = torch.cat([h_mats.reshape(b, 9), k_vecs, dists], dim=1).float().contiguous()
@@ -136,19 +188,23 @@ def warp_images_cuda(sources, h_mats, k_vecs, dists, out_side: int,
     else:
         # out-of-range indices give zero crops in the kernel (no host sync here)
         idx = source_indices.to(torch.int32).contiguous()
-    out = torch.empty((b, out_side, out_side, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((b, out_side, out_side, 3), dtype=out_dtype, device=dev)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.metro_warp_crop(
             src.data_ptr(), params.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            b, n, th, tw, out_side, torch.cuda.current_stream().cuda_stream)
+            b, n, th, tw, out_side, EPILOGUES.index(epilogue), int(out_dtype == torch.bfloat16),
+            UNIT, SCALE, OFFSET, torch.cuda.current_stream().cuda_stream)
     build.check(err, "metro_warp_crop")
-    LAUNCHES += 1
+    KERNEL_LAUNCHES[epilogue, out_dtype] += 1
     return out
 
 
-def warp_images(sources, h_mats, k_vecs, dists, out_side: int, source_indices=None):
-    """Batched crop warp: uint8 [N,Hs,Ws,3] -> float32 [B,S,S,3] in [0,255].
+def warp_images(sources, h_mats, k_vecs, dists, out_side: int, source_indices=None,
+                epilogue: str = "none", out_dtype=torch.float32):
+    """Batched crop warp: uint8 [N,Hs,Ws,3] -> [B,S,S,3], float32 in [0,255]
+    by default, or through `epilogue` (`EPILOGUES`) in `out_dtype` (bf16 only
+    with "normalize").
 
     With `source_indices` [B], crop b samples source `source_indices[b]`
     (one shared frame: N=1 and all-zero indices); by default crop b samples
@@ -156,11 +212,14 @@ def warp_images(sources, h_mats, k_vecs, dists, out_side: int, source_indices=No
     """
     if sources.device.type == "cpu":
         _check(sources, h_mats, k_vecs, dists, source_indices)
+        _check_form(epilogue, out_dtype)
         if source_indices is not None and source_indices.numel() and (
                 int(source_indices.min()) < 0
                 or int(source_indices.max()) >= sources.shape[0]):
             raise ValueError(f"source_indices out of range [0, {sources.shape[0]})")
-        return warp_images_plain(sources, h_mats, k_vecs, dists, out_side, source_indices)
+        return warp_images_plain(sources, h_mats, k_vecs, dists, out_side, source_indices,
+                                 epilogue, out_dtype)
     if sources.is_cuda:
-        return warp_images_cuda(sources, h_mats, k_vecs, dists, out_side, source_indices)
+        return warp_images_cuda(sources, h_mats, k_vecs, dists, out_side, source_indices,
+                                epilogue, out_dtype)
     raise ValueError(f"warp_images: unsupported device {sources.device}")

@@ -3,8 +3,9 @@
 and per-example parameters in, normalized float crops out.
 
 Train leg, in the reference's order: background composite (when the batch
-carries "source_mask") -> K1 warp -> x1/255 -> K2 occluder paste -> colour
-jitter -> normalize. The inference leg is the warp and normalize only.
+carries "source_mask") -> K1 warp with its x1/255 epilogue -> K2 occluder
+paste -> colour jitter -> normalize. The inference leg is one K1 launch with
+the x1/255 + normalize epilogue fused into its store.
 """
 from __future__ import annotations
 
@@ -29,28 +30,33 @@ def batch_to_device(batch: dict, device) -> dict:
 
 
 def device_augment(batch: dict, proc_side: int, train: bool = False, occluder_bank=None,
-                   background_bank=None):
+                   background_bank=None, out_dtype=None):
     """{"source" [B,T,T,3] uint8, "warp_h" [B,3,3], "warp_k" [B,4],
     "warp_dist" [B,5], and for training "occ_params" [B,2] (enabled, bank
     index), "occ_affine" [B,2,3], "color_params" [B,4] (brightness,
-    contrast, saturation, hue)} -> [B,S,S,3] float32 crops in [-1, 1].
+    contrast, saturation, hue)} -> [B,S,S,3] crops in [-1, 1], float32 or,
+    with `train=False`, in `out_dtype` (default float32; bf16 rounds the
+    float32 result to nearest even).
 
     `occluder_bank`: uint8 [N,T2,T2,4] from `pack_occluder_bank_for`.
     `background_bank`: uint8 [N,T,T,3], used when the batch carries
     "source_mask" and "bg_params".
     """
+    warp_args = (batch["warp_h"], batch["warp_k"], batch["warp_dist"], proc_side)
+    if not train:
+        return warp_images(batch["source"], *warp_args, epilogue="normalize",
+                           out_dtype=out_dtype or torch.float32)
+    if out_dtype not in (None, torch.float32):
+        raise ValueError(f"the train leg gives float32 crops, not {out_dtype}")
     source = batch["source"]
-    if train and background_bank is not None and "source_mask" in batch:
+    if background_bank is not None and "source_mask" in batch:
         source = composite_background(source, batch["source_mask"], background_bank,
                                       batch["bg_params"])
-    crops = warp_images(source, batch["warp_h"], batch["warp_k"], batch["warp_dist"],
-                        proc_side)
-    crops = crops * (1.0 / 255.0)
-    if train and occluder_bank is not None:
+    crops = warp_images(source, *warp_args, epilogue="unit")
+    if occluder_bank is not None:
         occ = batch["occ_params"]
         crops = occlude_with_bank(crops, occluder_bank, occ[:, 1].to(torch.int32),
                                   batch["occ_affine"], occ[:, 0])
-    if train:
-        cp = batch["color_params"]
-        crops = color_jitter(crops, cp[:, 0], cp[:, 1], cp[:, 2], cp[:, 3])
+    cp = batch["color_params"]
+    crops = color_jitter(crops, cp[:, 0], cp[:, 1], cp[:, 2], cp[:, 3])
     return normalize(crops)

@@ -6,8 +6,8 @@ Counterparts of the Pallas probes in `scripts/exp_pallas_prims.py`:
   lane_loop  `sum_k x[b, i, (idx[b,i,j] + k) % W]`, `[64,H,128]` int32
              (`build_lane_loop`)
   rowsel     `sum_k roll(P[b], k, 0) @ S[b]` with P `[64,160]` one-hot bf16,
-             S `[160,128]` bf16, float32 sum (`build_rowsel`); the product is
-             in the kernel's body, a plain loop
+             S `[160,128]` bf16, float32 sum (`build_rowsel`); every rep's
+             product on the tensor cores (`wgmma`, csrc/rowsel_mma.cu)
   roll       `sum_k roll(x[b], shift[b] + k, 1)`, `[64,64,512]` int32
              (`build_roll`)
   dynslice   `sum_k x[b, (start[b] + k) % 448 : +64]` from `[64,512,128]`
@@ -68,16 +68,29 @@ def rowsel_plain(p: torch.Tensor, s: torch.Tensor, reps: int = REPS) -> torch.Te
     return acc
 
 
-def rowsel_cuda(p: torch.Tensor, s: torch.Tensor, reps: int = REPS) -> torch.Tensor:
-    check_cuda("rowsel_cuda", p, s, dtypes=(torch.bfloat16, torch.bfloat16))
+ROWSEL_ROWS = 64  # the rowsel kernel's row tile: one warpgroup's wgmma M
+ROWSEL_MAX_ROWS = 512  # P's rows and S fit in one block's shared memory
+ROWSEL_SPLIT = 2  # blocks that share the reps of each 64 rows: 2 x 64 blocks for 132 SMs
+
+
+def rowsel_cuda(p: torch.Tensor, s: torch.Tensor, reps: int = REPS,
+                split: int = ROWSEL_SPLIT) -> torch.Tensor:
+    """The tensor-core kernel: p [B,R,160] bf16 (R a multiple of 64, at most
+    512), s [B,160,128] bf16 -> [B,R,128] float32; `split` blocks share the
+    reps of each 64 rows and add their partial sums."""
     if (p.dim() != 3 or s.dim() != 3 or p.shape[0] != s.shape[0] or p.shape[2] != 160
-            or tuple(s.shape[1:]) != (160, 128)):
-        raise ValueError(f"rowsel_cuda takes p [B,R,160] and s [B,160,128], got "
-                         f"{tuple(p.shape)}, {tuple(s.shape)}")
+            or tuple(s.shape[1:]) != (160, 128) or p.shape[1] % ROWSEL_ROWS
+            or not 0 < p.shape[1] <= ROWSEL_MAX_ROWS):
+        raise ValueError(f"rowsel_cuda takes p [B,R,160] with R a multiple of {ROWSEL_ROWS} up "
+                         f"to {ROWSEL_MAX_ROWS} and s [B,160,128], got {tuple(p.shape)}, "
+                         f"{tuple(s.shape)}")
+    if split < 1 or reps < 0:
+        raise ValueError(f"rowsel_cuda: split {split} and reps {reps}")
+    check_cuda("rowsel_cuda", p, s, dtypes=(torch.bfloat16, torch.bfloat16))
     b, r, k = p.shape
-    out = torch.empty((b, r, 128), dtype=torch.float32, device=p.device)
+    out = torch.zeros((b, r, 128), dtype=torch.float32, device=p.device)
     return _launch("rowsel", "metro_probe_rowsel", out, p.data_ptr(), s.data_ptr(),
-                   out.data_ptr(), b, r, k, 128, reps)
+                   out.data_ptr(), b, r, k, 128, reps, split)
 
 
 def roll_plain(x: torch.Tensor, shift: torch.Tensor, reps: int = REPS) -> torch.Tensor:

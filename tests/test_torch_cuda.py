@@ -55,23 +55,88 @@ def _params(rng, b, tile, side):
     return [torch.tensor(a, dtype=torch.float32) for a in (h, k, d)]
 
 
-@pytest.mark.parametrize("shared_frame", [False, True])
-def test_warp_kernel_matches_plain(cuda, shared_frame):
+def _warp_inputs(cuda, shared_frame):
     rng = np.random.RandomState(0)
     b, tile, side = 8, 256, 128
     n = 1 if shared_frame else b
     src = torch.from_numpy(rng.randint(0, 256, (n, tile, tile, 3)).astype(np.uint8)).to(cuda)
     h, k, d = (t.to(cuda) for t in _params(rng, b, tile, side))
     idx = torch.zeros(b, dtype=torch.int32, device=cuda) if shared_frame else None
+    return src, h, k, d, side, idx
+
+
+@pytest.mark.parametrize("shared_frame", [False, True])
+def test_warp_kernel_matches_plain(cuda, shared_frame):
+    args = _warp_inputs(cuda, shared_frame)
     before = warp.LAUNCHES
-    got = warp.warp_images(src, h, k, d, side, idx)
+    got = warp.warp_images(*args)
     assert warp.LAUNCHES == before + 1
-    want = warp.warp_images_plain(src, h, k, d, side, idx)
+    want = warp.warp_images_plain(*args)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     ok = ~torch.isnan(got)
-    # [0,255] units: float32 coordinate ulps (FMA contraction in the kernel)
-    # through the bilinear weights
+    # [0,255] units: the kernels build with -fmad=false and keep the plain
+    # version's order of operations; the margin is for a float32 coordinate
+    # ulp through the bilinear weights, should one operation round otherwise
     assert float((got[ok] - want[ok]).abs().max()) <= 0.05
+
+
+FORMS = {f"{e}-{str(d)[6:]}": (e, d) for e, d in warp.FORMS}
+FORM_UNITS = {"none": 1.0, "unit": 1 / 255, "normalize": 2 / 255}  # [0,255] -> the form's
+
+
+def _same_bits(a, b):
+    nan = torch.isnan(b)
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[b.dtype]
+    return (a.dtype == b.dtype and torch.equal(torch.isnan(a), nan)
+            and torch.equal(a[~nan].view(view), b[~nan].view(view)))
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("shared_frame", [False, True])
+def test_warp_epilogue_matches_plain_chain_and_unfused_kernel(cuda, shared_frame, form):
+    epilogue, dtype = FORMS[form]
+    args = _warp_inputs(cuda, shared_frame)
+    before = dict(warp.KERNEL_LAUNCHES)
+    got = warp.warp_images(*args, epilogue=epilogue, out_dtype=dtype)
+    assert warp.KERNEL_LAUNCHES[epilogue, dtype] == before[epilogue, dtype] + 1
+    assert got.dtype == dtype
+    want = warp.warp_images_plain(*args, epilogue=epilogue, out_dtype=dtype)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(got)
+    # test_warp_kernel_matches_plain's 0.05, in the form's units; bf16 adds
+    # one bf16 ulp at 1.0 (2^-7): both sides round to bf16 once
+    tol = 0.05 * FORM_UNITS[epilogue] + (2 ** -7 if dtype == torch.bfloat16 else 0.0)
+    assert float((got[ok].float() - want[ok].float()).abs().max()) <= tol
+    # the fused epilogue rounds as the unfused chain does: bit for bit
+    unfused = warp.apply_epilogue(warp.warp_images(*args), epilogue, dtype)
+    assert _same_bits(got, unfused)
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_warp_out_of_range_source_gives_zeros_in_every_epilogue(cuda, form):
+    epilogue, dtype = FORMS[form]
+    src = torch.full((1, 16, 16, 3), 200, dtype=torch.uint8, device=cuda)
+    h = torch.eye(3, device=cuda).expand(2, 3, 3).contiguous()
+    k = torch.tensor([[1.0, 1.0, 0.0, 0.0]] * 2, device=cuda)
+    out = warp.warp_images(src, h, k, torch.zeros(2, 5, device=cuda), 8,
+                           torch.tensor([0, 5], device=cuda), epilogue, dtype)
+    zero = {"none": 0.0, "unit": 0.0, "normalize": -1.0}[epilogue]
+    inside = warp.apply_epilogue(torch.full((1,), 200.0), epilogue, dtype).item()
+    assert bool((out[1] == zero).all()) and bool((out[0] == inside).all())
+
+
+@pytest.mark.parametrize("reps", [1, 64])
+@pytest.mark.parametrize("rows", [64, 128])
+def test_rowsel_kernel_is_exact(cuda, rows, reps):
+    from metro_pose3d_tpu_torch.probes import prims
+
+    rng = np.random.RandomState(rows + reps)
+    p = torch.from_numpy(np.eye(160, dtype=np.float32)[rng.randint(0, 160, (4, rows))])
+    s = torch.from_numpy(rng.randint(0, 255, (4, 160, 128)).astype(np.float32))
+    p, s = p.to(cuda).bfloat16(), s.to(cuda).bfloat16()
+    want = prims.rowsel_plain(p, s, reps)
+    for split in (1, 2, 3):
+        assert torch.equal(prims.rowsel_cuda(p, s, reps, split), want)
 
 
 def test_warp_kernel_out_of_range_source_gives_zeros(cuda):
