@@ -9,8 +9,9 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
 
   1 env      torch and CUDA versions, the card's name and power limit
   2 build    nvcc build of the kernel library, in seconds; registers and
-             spills of the crop warp and row-select kernels, and the
-             row select's tensor-core instructions (HGMMA) in its SASS
+             spills of the crop warp, row-select, roll and lane-loop
+             kernels, and the row select's tensor-core instructions
+             (HGMMA) in its SASS
   3 k3       stem max pool kernel == its plain version, bit for bit (NaN
              where it has NaN), in both variants: 16-byte vectors and scalar
   4 k1       crop warp kernel in each form (epilogue none, unit, normalize
@@ -23,7 +24,9 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              weights: 3 crop-in and 3 tile-in requests of 64; both kernels
              must have launched, the pool in its 16-byte variant and the
              warp with its bf16 normalize epilogue only
-  6 parity   the same path in float32 (TF32 off) on the card and on the CPU
+  6 parity   the same path in float32 (TF32 off) on the card and on the
+             CPU; then the soft-argmax decode with TF32 matmuls on, card
+             against CPU (1e-5 in (0,1) units)
   7 time     kernels against their plain versions (device time by the
              profiler, and CUDA events per call), every K1 form beside the
              unfused chain, crops/s of the serving forms, and a profiler
@@ -34,14 +37,19 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              float32 within 1e-6, bf16 within one bf16 ulp of the float32
              sum; two launches on one input bitwise equal
  10 train    the training path at the default Config() (R50@256 bf16, 64 3D
-             + 32 2D rows, 512^2 tiles) through `train()`: 10 steps with a
-             checkpoint at 5, a resume from 5 to 10, then 20 steps on one
-             batch whose loss must fall; all four kernels must have launched,
-             the pool's forward and backward in their 16-byte variants, the
-             warp with its unit epilogue only
- 11 t-parity one float32 train step (TF32 off) on the card and on the CPU
+             + 32 2D rows, 512^2 tiles, background_prob 0.7) through
+             `train()`, on batches that carry a foreground mask: 10 steps
+             with a checkpoint at 5, a resume from 5 to 10, then 20 steps on
+             one batch whose loss must fall; `train()` builds the procedural
+             background bank and every step composites on the card; all
+             four kernels must have launched, the pool's forward and
+             backward in their 16-byte variants, the warp with its unit
+             epilogue only
+ 11 t-parity one float32 train step (TF32 off) of a masked batch with the
+             background bank on the card and on the CPU
  12 t-time   K2, K3-bwd (random and post-ReLU input) and the bf16 train step
-             at B=96 (informative), with a profiler breakdown of the step
+             at B=96 without and with the background bank (informative),
+             with a profiler breakdown of the step
  13 modes    the pool's `torch` and `keras` alignments: forward bit for bit
              (float32 and bf16, even and odd sizes, all-negative border
              windows, the main-path shape), backward at phase 9's tolerances
@@ -63,9 +71,12 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              fall, the `torch` forward and backward kernels must have
              launched; 3 steps of (b) for the `keras` pair; one float32 step
              of (a) on the card and on the CPU
- 16 probes   each probe kernel == its plain version, then the probes' own
-             entry points (`probes.gather.main`, `probes.prims.main`) with
-             their times and rates; the row select's time by split, and one
+ 16 probes   each probe kernel == its plain version, and the roll, lane loop
+             and row slice also on `probes.prims.edge_cases` (negative and
+             out-of-range shifts and starts, widths not a multiple of 4,
+             reps 0, 1, 33 and above the width); then the probes' own entry
+             points (`probes.gather.main`, `probes.prims.main`) with their
+             times and rates; the row select's time by split, and one
              `torch.bmm` over the stacked rolls as its yardstick
 
 A failed phase raises, so the script exits non-zero. The last two lines are
@@ -74,10 +85,17 @@ record holds its launches on the path that runs it, its time, its plain
 version's, its bound (the larger of bytes moved over the card's 3.35 TB/s
 and operations over the card's peak for their type) and, where one PyTorch
 call computes the same function, that call's time; a pool record also holds
-its share of the bound. The crop warp's and the row select's `ms` is device
-time from the profiler (their wrappers' host work outlasts the kernel, so
-CUDA events around back-to-back calls time the host; that reading is
-`call_ms`); the other kernels' `ms` is by CUDA events. Without CUDA it exits
+its share of the bound. The roll and the lane loop count int32 adds at the
+INT32 pipe's rate (64 three-input adds, so 128 adds, a clock an SM, at the
+card's SM count and maximum SM clock), the lane loop also its shared-memory
+words (128 B a clock an SM); their records name the term that bounds them
+(`bound_term`: bytes, int32 adds or shared words; `bound_by` says bytes or
+operations), and add the bytes-only bound (`bound_bytes_ms`), both shares,
+and the kernel's time at reps 0 (`ms_reps0`: its loads and stores alone).
+The crop warp's, the row select's, the roll's and the lane loop's `ms` is
+device time from the profiler (their wrappers' host work outlasts the
+kernel, so CUDA events around back-to-back calls time the host; that
+reading is `call_ms`); the other kernels' `ms` is by CUDA events. Without CUDA it exits
 non-zero at once and prints no result. It imports no jax.
 """
 from __future__ import annotations
@@ -112,8 +130,11 @@ TRAIN_PARITY_RTOL = {"loss": 1e-4, "loss3d": 1e-4, "loss2d": 1e-4, "grad_norm": 
 STATS_ATOL = 1e-4
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 # dense bf16 tensor-core rate, float32 rate outside the tensor cores.
+# `card_rates` gives the int32 adds of the INT32 pipe and the shared-memory
+# rate from the card's own SM count and maximum SM clock.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "float32": 67e12}
+TF32_DECODE_TOL = 1e-5  # (0,1) units; TF32 would round each input by ~5e-4 relative
 FAMILIES = {  # name: (overrides of Config(), the pool alignment it runs)
     "a_torchvision_r50": ({"model.backbone": "resnet50", "model.preactivation": "false",
                            "model.conv_padding": "torch", "model.stride_position": "first"},
@@ -137,6 +158,20 @@ def card_info() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def card_rates() -> dict:
+    """-> {"int32": int32 adds a second, "shared": shared-memory bytes a
+    second, "sms", "mhz"}, from the card's SM count and the maximum SM clock
+    nvidia-smi reports. The INT32 pipe issues 64 three-input adds (IADD3,
+    two adds each: ptxas pairs a chain of adds into them) a clock an SM;
+    shared memory serves 128 bytes a clock an SM."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    mhz = float(out.strip().splitlines()[0].split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"int32": sms * 64 * 2 * mhz * 1e6, "shared": sms * 128 * mhz * 1e6,
+            "sms": sms, "mhz": mhz}
 
 
 def crop_params(rng, b, tile, side, kind):
@@ -230,6 +265,19 @@ def bound(n_bytes: float, n_ops: float, op_type: str = "float32"):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def loop_bound(n_bytes: float, n_adds: float, n_shared: float, rates: dict):
+    """-> (bound_ms, bound_by, term): the looped probes' bound, the largest
+    of `n_bytes` over the memory rate, `n_adds` int32 adds and `n_shared`
+    bytes read from shared memory at the card's `rates`; term names it
+    ("bytes", "int32 adds" or "shared words"), bound_by is "bytes" or
+    "operations"."""
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "int32 adds": n_adds / rates["int32"] * 1e3,
+             "shared words": n_shared / rates["shared"] * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -255,26 +303,28 @@ def tie_count(x: torch.Tensor, y: torch.Tensor, mode: str = "same", pad_only: bo
 def device_ms(fn, kernel: str, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of a launch of the kernels whose name holds `kernel`,
     by the profiler over `iters` calls of fn (each launches one). The
-    profiler may miss a launch at the start of its window, so the mean is
-    over the launches it recorded, at least half of them."""
+    profiler may miss launches of its window, so the mean is over the
+    launches it recorded, at least half of them; a window that recorded
+    fewer is profiled once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and kernel in evt.key:
-            total += evt.self_device_time_total
-            count += evt.count
-    if not iters / 2 <= count <= iters:
-        fail(f"the profiler saw {count} launches of {kernel} in {iters} calls")
-    return total / 1e3 / count
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and kernel in evt.key:
+                total += evt.self_device_time_total
+                count += evt.count
+        if iters / 2 <= count <= iters:
+            return total / 1e3 / count
+    fail(f"the profiler saw {count} launches of {kernel} in {iters} calls, twice")
 
 
 def kernel_resources(cuobjdump: str, lib_path, names):
@@ -334,12 +384,15 @@ def profile_breakdown(fn, steps: int, label: str = "[12 t-time] profiler, train 
             f"port kernels: {mine}")
 
 
-def train_batch(rng, n3, n2, tile, side, n_occ, occ_side=96):
+def train_batch(rng, n3, n2, tile, side, n_occ, occ_side=96, n_bg=0):
     """A host train batch in the `example_spec` layout, made with numpy:
     warps from `crop_params`, a random skeleton about 4 m in front of the
     crop camera projected into the crop, and occluder and colour parameters
     drawn as `pipeline/crops.py::sample_aug_params` draws them. The last n2
-    rows are 2D-only (is_3d 0, no 3D validity)."""
+    rows are 2D-only (is_3d 0, no 3D validity). With `n_bg` > 0 the batch
+    also carries a foreground mask ("source_mask": an ellipse with a soft
+    edge, 255 inside) and background parameters ("bg_params": enabled with
+    probability 0.7, a bank index below n_bg), as a masked 3DHP batch does."""
     b, j = n3 + n2, 17
     h, k, d, intr = crop_params(rng, b, tile, side, "normal")
     root = np.stack([rng.uniform(-300, 300, b), rng.uniform(-300, 300, b),
@@ -360,7 +413,18 @@ def train_batch(rng, n3, n2, tile, side, n_occ, occ_side=96):
         occ_aff[i, :, :2] = m
         occ_aff[i, :, 2] = occ_side / 2.0 - m @ (centre * side)
     occ = np.stack([rng.random_sample(b) < 0.7, rng.randint(0, n_occ, b)], 1)
-    return {"source": rng.randint(0, 256, (b, tile, tile, 3), dtype=np.uint8),
+    extra = {}
+    if n_bg:
+        ys, xs = np.mgrid[0:tile, 0:tile].astype(np.float32) / tile
+        masks = np.empty((b, tile, tile), np.uint8)
+        for i in range(b):
+            (cx, cy), (rx, ry) = rng.uniform(0.3, 0.7, 2), rng.uniform(0.1, 0.3, 2)
+            r2 = ((xs - cx) / rx) ** 2 + ((ys - cy) / ry) ** 2
+            masks[i] = np.clip((1 - r2) * 4, 0, 1) * 255
+        bg = np.stack([rng.random_sample(b) < 0.7, rng.randint(0, n_bg, b)], 1)
+        bg[0, 0] = 1
+        extra = {"source_mask": masks, "bg_params": bg.astype(np.float32)}
+    return {**extra, "source": rng.randint(0, 256, (b, tile, tile, 3), dtype=np.uint8),
             "warp_h": h, "warp_k": k, "warp_dist": d,
             "coords3d_true": xyz * is3d[:, None, None], "coords2d_true": uv,
             "joint_validity": np.repeat(is3d[:, None], j, 1), "joint_validity_2d": valid2d,
@@ -608,6 +672,33 @@ def phase_pool_modes(gen, dev, card):
     return rec
 
 
+def decode_with_tf32(gen, dev, mcfg, b) -> str:
+    """6: the 2D and 3D soft-argmax decode with TF32 matmuls turned on
+    (`torch.set_float32_matmul_precision("high")`), card against CPU, within
+    TF32_DECODE_TOL in (0,1) units, on logits at the heads' shapes. The
+    flags are restored after."""
+    from metro_pose3d_tpu_torch.ops.soft_argmax import soft_argmax_2d, soft_argmax_3d
+
+    hm, j = mcfg.proc_side // mcfg.stride, 17
+    l3 = 3 * torch.randn((b, hm, hm, mcfg.depth, j), generator=gen, device=dev)
+    l2 = 3 * torch.randn((b, hm, hm, j), generator=gen, device=dev)
+    before = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("high")
+    try:
+        if not torch.backends.cuda.matmul.allow_tf32:
+            fail("set_float32_matmul_precision('high') did not turn TF32 matmuls on")
+        errs = {name: float((fn(lg).cpu() - fn(lg.cpu())).abs().max())
+                for name, fn, lg in (("3d", soft_argmax_3d, l3), ("2d", soft_argmax_2d, l2))}
+    finally:
+        torch.set_float32_matmul_precision(before[0])
+        torch.backends.cudnn.allow_tf32 = before[1]
+    if not max(errs.values()) <= TF32_DECODE_TOL:
+        fail(f"the decode with TF32 on differs from the CPU's by {errs} > {TF32_DECODE_TOL}")
+    return (f"[6 parity] soft-argmax with TF32 matmuls on, card vs CPU, [{b},{hm},{hm},"
+            f"{mcfg.depth},{j}] and [{b},{hm},{hm},{j}]: max abs diff 3d {errs['3d']:.2e}, 2d "
+            f"{errs['2d']:.2e} (tol {TF32_DECODE_TOL}, (0,1) units)")
+
+
 def family_cfg(name, extra=None):
     from metro_pose3d_tpu_torch.config import Config, apply_overrides
 
@@ -845,9 +936,10 @@ def rowsel_times(prims, args, want) -> dict:
     return out
 
 
-def phase_probes(dev, card):
+def phase_probes(dev, card, rates):
     """16: each probe kernel against its plain version (exact), then the
-    probes' entry points. -> list of kernel records."""
+    probes' entry points; the roll's and the lane loop's bounds at the
+    card's `rates` (`card_rates`). -> list of kernel records."""
     from metro_pose3d_tpu_torch.probes import gather, prims, time_ms
 
     ref = {"rows_i32": "scripts/exp_pallas_gather.py:51",
@@ -903,13 +995,28 @@ def phase_probes(dev, card):
         if got.dtype != want.dtype or not torch.equal(got, want):
             fail(f"probe {name!r} differs from its plain version: max abs err {err}")
         kernel = cuda_fn.__name__[:-len("_cuda")]
-        ops = 2 * 160 * n_work if kernel == "rowsel" else n_work  # multiply-adds, or adds
-        bms, by = bound(nbytes(*args, got), ops, "bf16" if kernel == "rowsel" else "float32")
+        looped = kernel in ("roll", "lane_loop")
+        if kernel == "rowsel":
+            bms, by = bound(nbytes(*args, got), 2 * 160 * n_work, "bf16")  # multiply-adds
+        elif looped:
+            # one int32 add a rep; the lane loop also reads one shared word a
+            # rep, where a roll thread's outputs share one register window
+            bms, by, term = loop_bound(nbytes(*args, got), n_work,
+                                       4 * n_work if kernel == "lane_loop" else 0, rates)
+        else:
+            bms, by = bound(nbytes(*args, got), n_work)
         r = by_kernel.setdefault(kernel, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                           "bound_ms": 0.0, "bound_by": by, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if kernel == "rowsel":
             r.update(rowsel_times(prims, args, got))
+        elif looped:
+            r["ms"] += device_ms(lambda: cuda_fn(*args), f"{kernel}_kernel", iters=50)
+            r["ms_reps0"] = r.get("ms_reps0", 0.0) + device_ms(
+                lambda: cuda_fn(*args, reps=0), f"{kernel}_kernel", iters=50)
+            r["call_ms"] = r.get("call_ms", 0.0) + time_ms(lambda: cuda_fn(*args))
+            r["bound_term"] = term
+            r["bound_bytes_ms"] = r.get("bound_bytes_ms", 0.0) + bound(nbytes(*args, got), 0)[0]
         else:
             r["ms"] += time_ms(lambda: cuda_fn(*args))
         r["plain_ms"] += time_ms(lambda: plain_fn(*args), iters=3, warmup=1)
@@ -924,6 +1031,24 @@ def phase_probes(dev, card):
                   + f"; bound {bms:.4f} ms ({by}); torch.bmm over the stacked rolls (float32, "
                   f"TF32 off) {r['library_ms']:.4f} ms, then its .sum over the reps "
                   f"{r['library_sum_ms']:.4f} ms  [{card}]")
+    for kernel in ("roll", "lane_loop"):
+        r = by_kernel[kernel]
+        r.update(bound_share=r["bound_ms"] / r["ms"], bytes_share=r["bound_bytes_ms"] / r["ms"])
+        print(f"[16 probes] {kernel} (summed over its shapes): kernel {r['ms']:.4f} ms device "
+              f"time ({r['call_ms']:.4f} ms a call by CUDA events; {r['ms_reps0']:.4f} ms at "
+              f"reps 0, its loads and stores alone), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_term']}, {r['bound_share']:.0%}), bytes-only bound "
+              f"{r['bound_bytes_ms']:.4f} ms ({r['bytes_share']:.0%}), plain "
+              f"{r['plain_ms']:.4f} ms  [{card}]")
+    edge = prims.edge_cases(device=dev)
+    for name, (cuda_fn, plain_fn, args, kw) in edge.items():
+        got, want = cuda_fn(*args, **kw), plain_fn(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"probe edge case {name!r} differs from its plain version: max abs err "
+                 f"{max_abs_err(got, want)}")
+    print(f"[16 probes] roll, lane loop and row slice equal to their plain versions on "
+          f"{len(edge)} edge cases: " + "; ".join(edge))
     for kernel, r in by_kernel.items():
         records.append({"name": f"probe_{kernel}", "route": "cuda",
                         "source": sources.get(kernel, src),
@@ -977,11 +1102,18 @@ def main() -> int:
     print(f"[2 build] kernels {how} (load {time.perf_counter() - t0:.1f} s) "
           f"-> {build.build().parent}")
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    usage, hgmma = kernel_resources(cuobjdump, build.build(), ("warp_crop", "rowsel"))
+    usage, hgmma = kernel_resources(cuobjdump, build.build(),
+                                    ("warp_crop", "rowsel", "roll_kernel", "lane_loop_kernel"))
     if not hgmma.get("rowsel"):
         fail(f"no HGMMA instruction in the row select's SASS: {hgmma}")
     print(f"[2 build] cuobjdump: warp_crop instances {usage.get('warp_crop')}, rowsel "
-          f"{usage.get('rowsel')}; HGMMA instructions in the rowsel SASS: {hgmma['rowsel']}")
+          f"{usage.get('rowsel')}, roll {usage.get('roll_kernel')}, lane loop "
+          f"{usage.get('lane_loop_kernel')}; HGMMA instructions in the rowsel SASS: "
+          f"{hgmma['rowsel']}")
+    rates = card_rates()
+    print(f"[2 build] rates for the looped probes' bounds: {rates['sms']} SMs at "
+          f"{rates['mhz']:.0f} MHz: int32 adds {rates['int32'] / 1e12:.2f} T/s, shared memory "
+          f"{rates['shared'] / 1e12:.2f} TB/s")
 
     # 3 K3: pool kernel == plain version, bit for bit
     pool_err = 0.0
@@ -1081,6 +1213,7 @@ def main() -> int:
           + f" (tol {PARITY_TOL})")
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
+    print(decode_with_tf32(gen, dev, cfg.model, 2 * BATCH))
 
     # 7 timings (informative; the card's name and power limit beside each)
     xp = torch.randn((2 * BATCH, 64, 128, 128), generator=gen, device=dev)
@@ -1141,6 +1274,8 @@ def main() -> int:
 
     del model, est, fn, args
     torch.cuda.empty_cache()
+    from metro_pose3d_tpu_torch.pipeline import device as pdevice
+    from metro_pose3d_tpu_torch.pipeline.backgrounds import get_background_bank
     from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
     from metro_pose3d_tpu_torch.pipeline.occluders import make_procedural_occluders
     from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
@@ -1185,16 +1320,28 @@ def main() -> int:
               f"{share:.3f}")
     del x, g, y
 
-    # 10 train: the main path of this slice, counting kernel launches
+    # 10 train: the main path of this slice, counting kernel launches; the
+    # batches carry foreground masks, so every step composites a background
     t0 = time.perf_counter()
-    host = [train_batch(rng, N3D, N2D, TILE, side, len(bank_np)) for _ in range(10)]
-    print(f"[10 train] 10 host batches of {N3D} 3D + {N2D} 2D rows, {TILE}^2 tiles, made "
-          f"in {time.perf_counter() - t0:.1f} s")
+    bg_np = get_background_bank(None, side=TILE)  # what train() builds for Config()
+    n_bg = len(bg_np)
+    host = [train_batch(rng, N3D, N2D, TILE, side, len(bank_np), n_bg=n_bg) for _ in range(10)]
+    print(f"[10 train] 10 host batches of {N3D} 3D + {N2D} 2D rows, {TILE}^2 tiles with "
+          f"foreground masks, and the background bank, made in {time.perf_counter() - t0:.1f} s")
     over = {"train.checkpoint_every": "5", "train.log_every": "1", "train.validate_every": "0"}
+    composites = []  # (bank shape, device) of each background composite
+    composite = pdevice.composite_background
 
-    def run(logdir, extra, batches, steps):
+    def counted_composite(src, mask, bg_bank, bg_params):
+        composites.append((tuple(bg_bank.shape), bg_bank.device.type))
+        return composite(src, mask, bg_bank, bg_params)
+
+    pdevice.composite_background = counted_composite
+
+    def run(logdir, extra, batches, steps, bg_bank=bg_np):
         tcfg = apply_overrides(Config(), {**over, **extra, "train.logdir": logdir})
-        state = train(tcfg, batches, occluder_bank=bank_np, max_steps=steps)
+        state = train(tcfg, batches, occluder_bank=bank_np, max_steps=steps,
+                      background_bank=bg_bank)
         torch.cuda.synchronize()
         with open(os.path.join(logdir, "history.json")) as f:
             return state, json.load(f)
@@ -1205,7 +1352,7 @@ def main() -> int:
         warp.reset_launches()
         occlusion.LAUNCHES = 0
         t0 = time.perf_counter()
-        state, hist = run(logdir, {}, iter(host), 10)
+        state, hist = run(logdir, {}, iter(host), 10, bg_bank=None)  # train() builds it
         first_leg = time.perf_counter() - t0
         # as if the run had been cut after its checkpoint at step 5
         for name in os.listdir(os.path.join(logdir, "checkpoints")):
@@ -1254,18 +1401,28 @@ def main() -> int:
         print(f"[10 train] 20 steps on one batch, no warmup: loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}; host-clock rate {rate:.1f} crops/s  [{card}]")
         del fixed
+    pdevice.composite_background = composite
+    want = [((n_bg, TILE, TILE, 3), "cuda")] * (10 + 5 + 20)
+    if composites != want:
+        fail(f"the train step did not composite every masked batch on the card with the bank "
+             f"train() built: {len(composites)} composites, {sorted(set(composites))}")
+    print(f"[10 train] background composite on the card at each of the {len(composites)} steps, "
+          f"bank of {n_bg} procedural {TILE}^2 tiles, built by train() in the first run "
+          f"(aug.background_prob {Config().aug.background_prob})")
     torch.cuda.empty_cache()
 
-    # 11 train parity: one float32 step on the card and on the CPU, TF32 off
+    # 11 train parity: one float32 step of a masked batch with the background
+    # bank on the card and on the CPU, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pcfg = apply_overrides(Config(), {"model.compute_dtype": "float32", "model.proc_side": "128",
                                       "train.warmup_steps": "0"})
-    pbatch = train_batch(rng, 3, 1, TILE, 128, len(bank_np))
+    pbatch = train_batch(rng, 3, 1, TILE, 128, len(bank_np), n_bg=n_bg)
     res = []
     for d in (dev, torch.device("cpu")):
         st = create_train_state(pcfg, d, seed=SEED + 2)
-        step = make_train_step(pcfg, 0, occluder_bank=pack_occluder_bank_for(bank_np, d))
+        step = make_train_step(pcfg, 0, occluder_bank=pack_occluder_bank_for(bank_np, d),
+                               background_bank=torch.from_numpy(bg_np).to(d))
         m = step(st, batch_to_device(pbatch, d))
         res.append(({k: float(v) for k, v in m.items()},
                     {k: v.detach().cpu() for k, v in st.model.state_dict().items()}))
@@ -1283,7 +1440,9 @@ def main() -> int:
     if not (stat_err <= STATS_ATOL and float(diff.max()) <= 2 * lr + 1e-6 and near > 0.99):
         fail(f"train parity: BN stats {stat_err:.2e} (tol {STATS_ATOL}), params max "
              f"{float(diff.max()):.2e} (tol 2 lr), share within lr/10 {near:.4f} (want > 0.99)")
-    print(f"[11 t-parity] one float32 step R50@128 B=4, card vs CPU, TF32 off: rel diff "
+    print(f"[11 t-parity] one float32 step R50@128 B=4, masked, background bank of "
+          f"{len(bg_np)}, {int(pbatch['bg_params'][:, 0].sum())}/4 composited, card vs CPU, TF32 "
+          f"off: rel diff "
           + ", ".join(f"{k} {abs(mg[k] - mc[k]) / abs(mc[k]):.1e}" for k in TRAIN_PARITY_RTOL)
           + f" (rtol {TRAIN_PARITY_RTOL}); BN stats {stat_err:.1e} (atol {STATS_ATOL}); "
           f"params: median {float(diff.median()):.1e}, max {float(diff.max()):.1e} "
@@ -1312,22 +1471,26 @@ def main() -> int:
     del xb, xr, gb
     tcfg = Config()
     st = create_train_state(tcfg, dev, seed=SEED)
-    step = make_train_step(tcfg, 0, occluder_bank=bank)
     tb = batch_to_device(host[0], dev)
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = time_ms(lambda: step(st, tb), iters=5, warmup=2)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[12 t-time] train step Config() R50@256 bf16 B={N3D + N2D}: {step_ms:.2f} ms, "
-          f"{(N3D + N2D) / step_ms * 1e3:.1f} crops/s, peak {peak:.2f} GiB  [{card}]")
+    bg = torch.from_numpy(bg_np).to(dev)
+    for what, step in (("no background bank", make_train_step(tcfg, 0, occluder_bank=bank)),
+                       ("masked batch with the background bank",
+                        make_train_step(tcfg, 0, occluder_bank=bank, background_bank=bg))):
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(lambda: step(st, tb), iters=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[12 t-time] train step Config() R50@256 bf16 B={N3D + N2D}, {what}: "
+              f"{step_ms:.2f} ms, {(N3D + N2D) / step_ms * 1e3:.1f} crops/s, peak {peak:.2f} GiB"
+              f"  [{card}]")
     print(profile_breakdown(lambda: step(st, tb), steps=2))
 
-    del st, step, tb
+    del st, step, tb, bg
     torch.cuda.empty_cache()
 
     modes = phase_pool_modes(gen, dev, card)  # 13
     fam_launches = phase_families_serving(rng, dev, card)  # 14
     ftrain_launches = phase_families_training(rng, dev, card, bank_np)  # 15
-    probe_records = phase_probes(dev, card)  # 16
+    probe_records = phase_probes(dev, card, rates)  # 16
 
     def kernel(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms, **more):
         return {"name": name, "route": "cuda",

@@ -14,7 +14,9 @@ Counterparts of the Pallas probes in `scripts/exp_pallas_prims.py`:
              int32 (`build_dynslice`)
 
 All are exact: integer sums, and one-hot rows times integers below 256
-summed in float32.
+summed in float32. Indices, shifts and starts are taken modulo their axis
+as Python takes them, so any int32 works; `edge_cases` draws such inputs,
+with widths and counts of reps the script does not use.
 
     python -m metro_pose3d_tpu_torch.probes.prims
 """
@@ -28,6 +30,9 @@ from metro_pose3d_tpu_torch.probes import check_cuda, time_ms
 
 REPS = 64
 B = 64
+# the lane loop's and the roll's rows in one block's shared memory
+# (csrc/probes.cu, kLoopSmemBytes / 4): a row's staged words must fit
+LOOP_SMEM_WORDS = 48 * 1024 // 4
 LAUNCHES = dict.fromkeys(("lane_loop", "rowsel", "roll", "dynslice"), 0)  # kernel launches
 
 
@@ -40,19 +45,31 @@ def _launch(name: str, fn_name: str, out: torch.Tensor, *args) -> torch.Tensor:
     return out
 
 
+def _check_loop(name: str, x: torch.Tensor, reps: int, row_words: int) -> None:
+    if x.dim() != 3 or 0 in x.shape or x.numel() >= 2 ** 31 or x.shape[0] > 65535:
+        raise ValueError(f"{name} takes x [B<=65535,H,W], nonempty, under 2^31 elements, "
+                         f"got {tuple(x.shape)}")
+    if reps < 0 or row_words > LOOP_SMEM_WORDS:
+        raise ValueError(f"{name}: reps {reps} at W {x.shape[2]} needs {row_words} staged "
+                         f"words a row, at most {LOOP_SMEM_WORDS}, and reps >= 0")
+
+
 def lane_loop_plain(x: torch.Tensor, idx: torch.Tensor, reps: int = REPS) -> torch.Tensor:
     w = x.shape[2]
     acc = torch.zeros_like(x)
     for k in range(reps):
-        acc += torch.take_along_dim(x, ((idx + k) % w).long(), dim=2)
+        acc += torch.take_along_dim(x, (idx.long() + k) % w, dim=2)
     return acc
 
 
 def lane_loop_cuda(x: torch.Tensor, idx: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    """The kernel: each window staged contiguous in shared memory, every
+    warp's reads rotated onto distinct banks."""
     check_cuda("lane_loop_cuda", x, idx, dtypes=(torch.int32, torch.int32))
-    if x.dim() != 3 or idx.shape != x.shape or x.shape[2] > 256:
-        raise ValueError(f"lane_loop_cuda takes x and idx [B,H,W<=256], got {tuple(x.shape)}, "
+    if idx.shape != x.shape:
+        raise ValueError(f"lane_loop_cuda takes x and idx of one shape, got {tuple(x.shape)}, "
                          f"{tuple(idx.shape)}")
+    _check_loop("lane_loop_cuda", x, reps, x.shape[-1] + max(reps, 1) - 1)
     out = torch.empty_like(x)
     b, h, w = x.shape
     return _launch("lane_loop", "metro_probe_lane_loop", out, x.data_ptr(), idx.data_ptr(),
@@ -105,10 +122,13 @@ def roll_plain(x: torch.Tensor, shift: torch.Tensor, reps: int = REPS) -> torch.
 
 
 def roll_cuda(x: torch.Tensor, shift: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    """The kernel: a tile of rows staged rolled once by 16-byte copies, 4
+    outputs a thread on a sliding window of registers."""
     check_cuda("roll_cuda", x, shift, dtypes=(torch.int32, torch.int32))
-    if x.dim() != 3 or tuple(shift.shape) != (x.shape[0],) or x.shape[2] > 512:
-        raise ValueError(f"roll_cuda takes x [B,H,W<=512] and shift [B], got {tuple(x.shape)}, "
+    if x.dim() != 3 or tuple(shift.shape) != (x.shape[0],):
+        raise ValueError(f"roll_cuda takes x [B,H,W] and shift [B], got {tuple(x.shape)}, "
                          f"{tuple(shift.shape)}")
+    _check_loop("roll_cuda", x, reps, 4 * -(-x.shape[2] // 4) + 4 * (reps // 4) + 8)
     out = torch.empty_like(x)
     b, h, w = x.shape
     return _launch("roll", "metro_probe_roll", out, x.data_ptr(), shift.data_ptr(),
@@ -132,9 +152,10 @@ def dynslice_cuda(x: torch.Tensor, start: torch.Tensor, rows: int = 64,
                   reps: int = REPS) -> torch.Tensor:
     check_cuda("dynslice_cuda", x, start, dtypes=(torch.int32, torch.int32))
     if (x.dim() != 3 or tuple(start.shape) != (x.shape[0],) or x.shape[1] > 512
-            or not 0 < rows < x.shape[1]):
-        raise ValueError(f"dynslice_cuda takes x [B,H<=512,W], start [B] and 0 < rows < H, got "
-                         f"{tuple(x.shape)}, {tuple(start.shape)}, rows {rows}")
+            or not 0 < rows < x.shape[1] or reps < 0):
+        raise ValueError(f"dynslice_cuda takes x [B,H<=512,W], start [B], 0 < rows < H and "
+                         f"reps >= 0, got {tuple(x.shape)}, {tuple(start.shape)}, rows {rows}, "
+                         f"reps {reps}")
     b, h, w = x.shape
     out = torch.empty((b, rows, w), dtype=x.dtype, device=x.device)
     return _launch("dynslice", "metro_probe_dynslice", out, x.data_ptr(), start.data_ptr(),
@@ -165,6 +186,49 @@ def make_cases(seed: int = 0, device="cpu", b: int = B) -> dict:
     cases[f"dyn row slice x{REPS} [64,128] from [512,128]"] = (
         dynslice_cuda, dynslice_plain, (i32(0, 1000, (b, 512, 128)), i32(0, 512 - 64, (b,))),
         b * 64 * 128 * REPS)
+    return cases
+
+
+def edge_cases(device="cpu", seed: int = 1) -> dict:
+    """name -> (cuda fn, plain fn, args, keyword args): the roll, lane loop
+    and row slice at widths that are not a multiple of 4 or below 32, row
+    counts that are not a multiple of a block's rows, reps 0, 1, 33 and above
+    W, and shifts, indices and starts that are negative, at least the axis,
+    or the ends of int32; and the roll at many batch elements and at rows
+    longer than a block's threads take in one pass."""
+    rng = np.random.RandomState(seed)
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(device)
+
+    def data(*shape):
+        return i32(rng.randint(-1000, 1000, shape))
+
+    def starts(n, w):
+        """n draws in [-3w, 3w), with the ends of int32 and -1, w first."""
+        return np.r_[[lo, hi, -1, w], rng.randint(-3 * w, 3 * w, n)][:n]
+
+    cases = {}
+    for b, h, w, reps in ((4, 5, 13, 33), (2, 9, 8, 1), (2, 3, 8, 0), (3, 7, 8, 100),
+                          (4, 3, 30, 64), (4, 5, 512, 64), (4, 3, 130, 7)):
+        cases[f"roll [{b},{h},{w}] x{reps}"] = (
+            roll_cuda, roll_plain, (data(b, h, w), i32(starts(b, w))), {"reps": reps})
+        idx = starts(b * h * w, w)
+        rng.shuffle(idx)
+        cases[f"lane loop [{b},{h},{w}] x{reps}"] = (
+            lane_loop_cuda, lane_loop_plain, (data(b, h, w), i32(idx.reshape(b, h, w))),
+            {"reps": reps})
+    # the roll at many batch elements, each with a short tile, and at rows
+    # with more 4-column groups than a block has threads
+    for b, h, w, reps in ((600, 9, 130, 7), (2, 3, 2000, 64)):
+        cases[f"roll [{b},{h},{w}] x{reps}"] = (
+            roll_cuda, roll_plain, (data(b, h, w), i32(starts(b, w))), {"reps": reps})
+    for b, h, w, rows, reps in ((4, 40, 13, 10, 33), (4, 512, 128, 64, 64), (2, 20, 16, 5, 0),
+                                (2, 20, 3, 19, 1)):
+        cases[f"row slice [{b},{h},{w}] rows {rows} x{reps}"] = (
+            dynslice_cuda, dynslice_plain, (data(b, h, w), i32(starts(b, h - rows))),
+            {"rows": rows, "reps": reps})
     return cases
 
 

@@ -71,11 +71,15 @@ def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
-def make_train_step(cfg: Config, root_index: int = 0, occluder_bank=None):
+def make_train_step(cfg: Config, root_index: int = 0, occluder_bank=None,
+                    background_bank=None):
     """-> step(state, batch) -> metrics. `state` is a `train.state.TrainState`
     (updated in place, its step counted); `batch` holds device tensors in
     the `example_spec` layout. `occluder_bank` is the uint8 bank from
-    `pipeline.device.pack_occluder_bank_for` (None: no occluders). Metrics
+    `pipeline.device.pack_occluder_bank_for` (None: no occluders).
+    `background_bank` is a uint8 [N,T,T,3] tensor on the step's device (None:
+    no background replacement); a batch that carries "source_mask" and
+    "bg_params" is composited onto it before the warp. Metrics
     are device scalars: loss, loss3d, loss2d (loss_abs with the absolute
     loss on) and grad_norm, the global norm of the unclipped gradients."""
     proc_side = cfg.model.proc_side
@@ -86,7 +90,8 @@ def make_train_step(cfg: Config, root_index: int = 0, occluder_bank=None):
         model, opt = state.model, state.optimizer
         model.train()
         with torch.no_grad():
-            crops = device_augment(batch, proc_side, train=True, occluder_bank=occluder_bank)
+            crops = device_augment(batch, proc_side, train=True, occluder_bank=occluder_bank,
+                                   background_bank=background_bank)
         opt.zero_grad(set_to_none=True)
         logits3d, logits2d = model(crops)
         total, parts = compute_losses(logits3d, logits2d, batch, cfg, root_index)

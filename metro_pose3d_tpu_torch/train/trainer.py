@@ -13,6 +13,7 @@ does, so a resumed run sees the batches an uninterrupted one would.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -24,6 +25,7 @@ import torch
 
 from metro_pose3d_tpu_torch.config import Config, apply_matmul_precision, config_to_json
 from metro_pose3d_tpu_torch.device import resolve_device
+from metro_pose3d_tpu_torch.pipeline.backgrounds import get_background_bank
 from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
 from metro_pose3d_tpu_torch.pipeline.occluders import get_occluder_bank
 from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
@@ -61,13 +63,21 @@ def _check_supported(cfg: Config, total: int) -> None:
 
 
 def train(cfg: Config, batches: Iterator[dict], occluder_bank: Optional[np.ndarray] = None,
-          max_steps: Optional[int] = None, root_index: int = 0, device=None):
+          max_steps: Optional[int] = None, root_index: int = 0, device=None,
+          background_bank: Optional[np.ndarray] = None):
     """Train to `train.num_steps` (or `max_steps`) -> the final `TrainState`.
 
     batches: host batches (numpy, `pipeline/device.py::example_spec` layout
     of the JAX package). occluder_bank: float RGBA [N,T,T,4] in [0, 1]
     (default: `get_occluder_bank(data.occluder_root)`, procedural without
-    VOC). device: default the card; a RuntimeError where CUDA is absent.
+    VOC). background_bank: uint8 [N,T,T,3] scene images, T the batches'
+    source side; with `aug.background_prob` > 0 and a first batch that
+    carries "source_mask" (the data has masks) it defaults to
+    `get_background_bank(data.background_root, data.source_side)`
+    (procedural without a directory), and a batch that carries
+    "source_mask" and "bg_params" is composited onto it; otherwise no bank
+    is built or used. device: default the card; a RuntimeError where CUDA
+    is absent.
     """
     t = cfg.train
     total = min(t.num_steps, max_steps or t.num_steps)
@@ -88,8 +98,21 @@ def train(cfg: Config, batches: Iterator[dict], occluder_bank: Optional[np.ndarr
     if occluder_bank is None:
         occluder_bank = get_occluder_bank(cfg.data.occluder_root or None,
                                           tile_side=cfg.aug.occluder_tile_side)
+    # 3DHP green-screen replacement, where the data has masks: the
+    # reference asks its dataset, the port the first batch
+    first = next(batches, None)
+    has_masks = first is not None and "source_mask" in first
+    batches = itertools.chain([] if first is None else [first], batches)
+    bg_bank = None
+    if cfg.aug.background_prob > 0 and has_masks:
+        if background_bank is None:
+            background_bank = get_background_bank(cfg.data.background_root or None,
+                                                  side=cfg.data.source_side)
+        bg_bank = torch.from_numpy(np.ascontiguousarray(background_bank)).to(device)
+        log.info("background replacement on: bank of %d tiles", len(background_bank))
     step_fn = make_train_step(cfg, root_index,
-                              occluder_bank=pack_occluder_bank_for(occluder_bank, device))
+                              occluder_bank=pack_occluder_bank_for(occluder_bank, device),
+                              background_bank=bg_bank)
 
     if cfg.data.cycle_batches > 0:
         # device-resident batches served round-robin; the phase follows the step

@@ -222,7 +222,11 @@ def test_occluder_kernel_matches_plain(cuda):
     assert torch.equal(got[8:11], crops[8:11])  # out-of-range index, disabled
 
 
-def test_tiny_train_step_on_card_matches_cpu(cuda):
+def _tiny_train_step_card_vs_cpu(cuda, masked):
+    """One float32 train step of a tiny model on the CPU and on the card,
+    from one seed; with `masked`, the batch carries a foreground mask and is
+    composited onto a background bank."""
+    from metro_pose3d_tpu_torch.pipeline.backgrounds import make_procedural_backgrounds
     from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
     from metro_pose3d_tpu_torch.pipeline.occluders import make_procedural_occluders
     from metro_pose3d_tpu_torch.train.loop import make_train_step
@@ -256,13 +260,20 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
         "occ_params": np.stack([np.ones(b), np.arange(b) % 8], 1).astype(np.float32),
         "occ_affine": aff,
     }
+    backgrounds = None
+    if masked:
+        batch["source_mask"] = rng.randint(0, 256, (b, 128, 128)).astype(np.uint8)
+        batch["bg_params"] = np.stack([np.arange(b) % 2, np.arange(b) % 3], 1).astype(np.float32)
+        backgrounds = make_procedural_backgrounds(3, 128, 4)
     occ = make_procedural_occluders(8, 96)
     torch.backends.cudnn.allow_tf32 = False
     try:
         out = {}
         for dev in ("cpu", cuda):
             state = create_train_state(cfg, dev, seed=1)
-            step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(occ, dev))
+            step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(occ, dev),
+                                   background_bank=None if backgrounds is None
+                                   else torch.from_numpy(backgrounds).to(dev))
             metrics = step(state, batch_to_device(batch, dev))
             out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
                              {k: v.cpu() for k, v in state.model.state_dict().items()})
@@ -278,6 +289,38 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
         # Adam's step of lr with the other sign
         atol = 1e-4 if name.endswith((".mean", ".var")) else 2 * lr + 1e-6
         torch.testing.assert_close(sd_gpu[name], sd_cpu[name], rtol=0, atol=atol)
+
+
+def test_tiny_train_step_on_card_matches_cpu(cuda):
+    _tiny_train_step_card_vs_cpu(cuda, masked=False)
+
+
+def test_tiny_masked_train_step_with_backgrounds_on_card_matches_cpu(cuda):
+    _tiny_train_step_card_vs_cpu(cuda, masked=True)
+
+
+def test_decode_with_tf32_on_matches_cpu(cuda):
+    """The soft-argmax decode uses no matmul, so TF32 (which rounds a
+    float32 matmul's inputs by up to ~5e-4 relative) cannot move it."""
+    from metro_pose3d_tpu_torch.ops.soft_argmax import soft_argmax_2d, soft_argmax_3d
+
+    g = torch.Generator().manual_seed(5)
+    l3 = 3 * torch.randn((8, 16, 16, 8, 17), generator=g)
+    l2 = 3 * torch.randn((8, 16, 16, 17), generator=g)
+    before = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        assert torch.backends.cuda.matmul.allow_tf32
+        got3, got2 = soft_argmax_3d(l3.to(cuda)).cpu(), soft_argmax_2d(l2.to(cuda)).cpu()
+    finally:
+        torch.set_float32_matmul_precision(before[0])
+        torch.backends.cuda.matmul.allow_tf32 = before[1]
+        torch.backends.cudnn.allow_tf32 = before[2]
+    # (0,1) units: float32 sums in another order on the card
+    torch.testing.assert_close(got3, soft_argmax_3d(l3), rtol=0, atol=1e-5)
+    torch.testing.assert_close(got2, soft_argmax_2d(l2), rtol=0, atol=1e-5)
 
 
 def _smooth_relu(shape, device):
@@ -328,9 +371,27 @@ def test_probe_kernels_match_plain(cuda):
         got = cuda_fn(*args)
         assert sum(prims.LAUNCHES.values()) == before + 1
         assert torch.equal(got, plain_fn(*args)), name
+    # a row whose staged window outgrows a block's shared memory, and negative reps
+    too_wide = torch.zeros(1, 2, prims.LOOP_SMEM_WORDS, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        prims.lane_loop_cuda(torch.zeros(1, 2, 300, dtype=torch.int32, device=cuda),
-                             torch.zeros(1, 2, 300, dtype=torch.int32, device=cuda))
+        prims.lane_loop_cuda(too_wide, too_wide)
+    with pytest.raises(ValueError):
+        prims.roll_cuda(too_wide, torch.zeros(1, dtype=torch.int32, device=cuda))
+    small = torch.zeros(1, 2, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        prims.lane_loop_cuda(small, small, reps=-1)
+
+
+def test_probe_edge_cases_match_plain(cuda):
+    """The roll, lane loop and row slice kernels on negative and out-of-range
+    shifts, indices and starts, widths that are not a multiple of 4 or below
+    32, and reps 0, 1, 33 and above the width: equal to their plain versions."""
+    from metro_pose3d_tpu_torch.probes import prims
+
+    cases = prims.edge_cases(device=cuda)
+    assert len(cases) == 20
+    for name, (cuda_fn, plain_fn, args, kw) in cases.items():
+        assert torch.equal(cuda_fn(*args, **kw), plain_fn(*args, **kw)), name
 
 
 @pytest.mark.parametrize("family", ["torchvision", "keras_v2", "twofive"])

@@ -74,6 +74,89 @@ def test_dynslice_plain():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+I32 = np.iinfo(np.int32)
+
+
+def _roll_ref(x, shift, reps):
+    return np.stack([sum(np.roll(x[b], int(shift[b]) + k, axis=1) for k in range(reps))
+                     if reps else np.zeros_like(x[b]) for b in range(len(x))])
+
+
+def _lane_loop_ref(x, idx, reps):
+    w = x.shape[2]
+    return sum((np.take_along_axis(x, (idx.astype(np.int64) + k) % w, axis=2)
+                for k in range(reps)), np.zeros_like(x))
+
+
+def _dynslice_ref(x, start, rows, reps):
+    h = x.shape[1]
+    return np.stack([sum((x[b, (int(start[b]) + k) % (h - rows):][:rows] for k in range(reps)),
+                         np.zeros_like(x[b, :rows])) for b in range(len(x))])
+
+
+@pytest.mark.parametrize("w,reps", [(32, 6), (13, 33), (8, 100), (30, 0)])
+def test_roll_plain_takes_any_int32_shift(w, reps):
+    rng = np.random.RandomState(w + reps)
+    x = rng.randint(-1000, 1000, (6, 3, w)).astype(np.int32)
+    shift = np.array([I32.min, I32.max, -1, w, -3 * w - 2, 5 * w + 1], np.int32)
+    got = prims.roll_plain(torch.from_numpy(x), torch.from_numpy(shift), reps=reps)
+    np.testing.assert_array_equal(got.numpy(), _roll_ref(x, shift, reps))
+
+
+@pytest.mark.parametrize("w,reps", [(16, 7), (13, 33), (8, 100), (30, 1)])
+def test_lane_loop_plain_takes_any_int32_start(w, reps):
+    rng = np.random.RandomState(w * reps)
+    x = rng.randint(-1000, 1000, (2, 5, w)).astype(np.int32)
+    idx = rng.randint(-3 * w, 3 * w, (2, 5, w)).astype(np.int32)
+    idx[0, 0, :4] = [I32.min, I32.max, -1, w]
+    got = prims.lane_loop_plain(torch.from_numpy(x), torch.from_numpy(idx), reps=reps)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _lane_loop_ref(x, idx, reps))
+
+
+@pytest.mark.parametrize("h,rows,reps", [(40, 10, 9), (40, 10, 70), (20, 19, 1)])
+def test_dynslice_plain_takes_any_int32_start(h, rows, reps):
+    rng = np.random.RandomState(h + rows + reps)
+    x = rng.randint(-1000, 1000, (5, h, 3)).astype(np.int32)
+    start = np.array([I32.min, I32.max, -1, h - rows, -7 * h], np.int32)
+    got = prims.dynslice_plain(torch.from_numpy(x), torch.from_numpy(start), rows=rows, reps=reps)
+    np.testing.assert_array_equal(got.numpy(), _dynslice_ref(x, start, rows, reps))
+
+
+def test_edge_cases_match_numpy_and_cover_the_edges():
+    """Every edge case the card checks its kernels on, through the plain
+    versions against numpy; and together they cover widths not a multiple
+    of 4 and below 32, reps 0, 1, 33 and above the width, row counts that
+    are not a multiple of a block's rows, and shifts, indices and starts
+    that are negative, at least the axis, and the ends of int32."""
+    cases = prims.edge_cases()
+    seen = {"w%4": False, "w<32": False, "reps0": False, "reps1": False, "reps33": False,
+            "reps>w": False, "negative": False, "past": False, "int32": False, "odd_h": False}
+    for name, (cuda_fn, plain_fn, args, kw) in cases.items():
+        x, s = (a.numpy() for a in args)
+        reps = kw["reps"]
+        got = plain_fn(*args, **kw).numpy()
+        if cuda_fn is prims.roll_cuda:
+            want, axis = _roll_ref(x, s, reps), x.shape[2]
+        elif cuda_fn is prims.lane_loop_cuda:
+            want, axis = _lane_loop_ref(x, s, reps), x.shape[2]
+        else:
+            want, axis = _dynslice_ref(x, s, kw["rows"], reps), x.shape[1] - kw["rows"]
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        w = x.shape[2]
+        seen["w%4"] |= w % 4 != 0
+        seen["w<32"] |= w < 32
+        seen["reps0"] |= reps == 0
+        seen["reps1"] |= reps == 1
+        seen["reps33"] |= reps == 33
+        seen["reps>w"] |= reps > w
+        seen["negative"] |= bool((s < 0).any())
+        seen["past"] |= bool((s >= axis).any())
+        seen["int32"] |= bool((s == I32.min).any() and (s == I32.max).any())
+        seen["odd_h"] |= x.shape[1] % 2 == 1
+    assert all(seen.values()), seen
+
+
 def test_prims_cases_have_the_scripts_shapes():
     cases = prims.make_cases(b=2)
     assert len(cases) == 6 and prims.REPS == 64 and prims.B == 64

@@ -22,6 +22,9 @@ from metro_pose3d_tpu.config import Config, apply_overrides
 from metro_pose3d_tpu.data.synthetic import SyntheticDataset
 from metro_pose3d_tpu.models.losses import compute_losses as jax_compute_losses
 from metro_pose3d_tpu.models.metro import MetroModel as FlaxMetro
+from metro_pose3d_tpu.pipeline.backgrounds import (
+    make_procedural_backgrounds as jax_make_procedural_backgrounds,
+)
 from metro_pose3d_tpu.pipeline.device import device_augment as jax_device_augment
 from metro_pose3d_tpu.pipeline.loader import prepare_one, stack_examples
 from metro_pose3d_tpu.pipeline.occluders import make_procedural_occluders
@@ -30,6 +33,8 @@ from metro_pose3d_tpu.train.state import create_train_state as jax_create_train_
 from metro_pose3d_tpu_torch.convert import state_dict_from_flax, train_state_from_flax
 from metro_pose3d_tpu_torch.models.losses import compute_losses
 from metro_pose3d_tpu_torch.models.metro import MetroModel
+from metro_pose3d_tpu_torch.pipeline import device as device_mod
+from metro_pose3d_tpu_torch.pipeline.backgrounds import make_procedural_backgrounds
 from metro_pose3d_tpu_torch.pipeline.device import (
     batch_to_device, device_augment, pack_occluder_bank_for,
 )
@@ -37,6 +42,7 @@ from metro_pose3d_tpu_torch.train import checkpoint as ckpt_mod
 from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
 from metro_pose3d_tpu_torch.train.loop import make_train_step
 from metro_pose3d_tpu_torch.train.state import create_train_state
+from metro_pose3d_tpu_torch.train import trainer as trainer_mod
 from metro_pose3d_tpu_torch.train.trainer import train
 
 TINY = {
@@ -83,13 +89,26 @@ def _mixed(batch):
     return b
 
 
+def _masked(batch, seed=9):
+    """The batch with a random foreground mask and background parameters
+    (enabled 0/1, bank index 0..2), and a bank of 3 random backgrounds."""
+    b = dict(batch)
+    rng = np.random.RandomState(seed)
+    b["source_mask"] = rng.randint(0, 256, (8, 128, 128)).astype(np.uint8)
+    b["bg_params"] = np.stack([rng.randint(0, 2, 8), rng.randint(0, 3, 8)],
+                              1).astype(np.float32)
+    return b, rng.randint(0, 256, (3, 128, 128, 3)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("n,side,seed", [(3, 32, 1), (2, 48, 7)])
+def test_procedural_backgrounds_match_jax(n, side, seed):
+    got = make_procedural_backgrounds(n, side, seed)
+    assert got.dtype == np.uint8 and got.shape == (n, side, side, 3)
+    np.testing.assert_array_equal(got, jax_make_procedural_backgrounds(n, side, seed))
+
+
 def test_train_augment_matches_jax(host_batches, bank):
-    batch = dict(host_batches[0])
-    rng = np.random.RandomState(9)
-    batch["source_mask"] = rng.randint(0, 256, (8, 128, 128)).astype(np.uint8)
-    batch["bg_params"] = np.stack([rng.randint(0, 2, 8), rng.randint(0, 3, 8)],
-                                  1).astype(np.float32)
-    backgrounds = rng.randint(0, 256, (3, 128, 128, 3)).astype(np.uint8)
+    batch, backgrounds = _masked(host_batches[0])
     want = np.asarray(jax.jit(lambda b, o, g: jax_device_augment(
         b, 64, o, train=True, background_bank=g))(
         {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(bank),
@@ -104,14 +123,15 @@ def test_train_augment_matches_jax(host_batches, bank):
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
 
 
-# name: (overrides, mixed 2D/3D batch, first batch, steps). The first
-# batch of each float32 case keeps every ReLU input at least 2e-6 from 0
-# (see `_grads_on_same_crops`).
+# name: (overrides, mixed 2D/3D batch, first batch, steps, masked batches
+# with a background bank). The first batch of each float32 case keeps every
+# ReLU input at least 2e-6 from 0 (see `_grads_on_same_crops`).
 STEP_CASES = {
     "f32_ghost_bn_absloss_mixed": (
-        {"model.bn_group_size": "4", "train.absloss_weight": "0.1"}, True, 5, 3),
-    "f32": ({}, False, 0, 1),
-    "bf16": ({"model.compute_dtype": "bfloat16"}, False, 0, 1),
+        {"model.bn_group_size": "4", "train.absloss_weight": "0.1"}, True, 5, 3, False),
+    "f32": ({}, False, 0, 1, False),
+    "bf16": ({"model.compute_dtype": "bfloat16"}, False, 0, 1, False),
+    "f32_background": ({}, False, 0, 2, True),
 }
 
 
@@ -126,11 +146,13 @@ def jax_start():
     return jax.device_get(state)
 
 
-def _grads_on_same_crops(cfg, jstate, port_model, batch, bank):
+def _grads_on_same_crops(cfg, jstate, port_model, batch, bank, backgrounds=None):
     """Per-tensor gradients of both packages' model + losses on the JAX
     package's augmented crops: the model's backward on equal inputs."""
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    crops = jax_device_augment(jb, cfg.model.proc_side, jnp.asarray(bank), train=True)
+    crops = jax_device_augment(jb, cfg.model.proc_side, jnp.asarray(bank), train=True,
+                               background_bank=None if backgrounds is None
+                               else jnp.asarray(backgrounds))
     model = FlaxMetro(cfg.model.at_phase(train=True))
 
     def loss_fn(params):
@@ -160,10 +182,15 @@ def _flat(named: dict) -> np.ndarray:
 
 @pytest.mark.parametrize("case", sorted(STEP_CASES))
 def test_train_steps_match_jax(case, host_batches, bank, jax_start):
-    over, mixed, first, n_steps = STEP_CASES[case]
+    over, mixed, first, n_steps, masked = STEP_CASES[case]
     cfg = _cfg(**over)
     f32 = cfg.model.compute_dtype == "float32"
     batches = [_mixed(b) if mixed else b for b in host_batches[first:first + n_steps]]
+    backgrounds = None
+    if masked:
+        pairs = [_masked(b, seed=9 + i) for i, b in enumerate(batches)]
+        batches, backgrounds = [p[0] for p in pairs], pairs[0][1]
+        assert all(np.any(b["bg_params"][:, 0] == 1) for b in batches)
     tx = jloop.make_optimizer(cfg)
     jstate = jax.tree_util.tree_map(jnp.array, jax_start)  # the step donates its input
     port = create_train_state(cfg, "cpu")
@@ -173,15 +200,19 @@ def test_train_steps_match_jax(case, host_batches, bank, jax_start):
     lr = cfg.train.base_lr
 
     if f32:
-        got, want = _grads_on_same_crops(cfg, jstate, port.model, batches[0], bank)
+        got, want = _grads_on_same_crops(cfg, jstate, port.model, batches[0], bank,
+                                         backgrounds)
         for name, w in want.items():
             # float32 roundoff through ~20 layers, per tensor against its norm
             # (head2d.bias has a zero gradient: the softmax ignores a shift)
             err = float((got[name] - w).norm())
             assert err <= 1e-4 * float(w.norm()) + 1e-7, (name, err, float(w.norm()))
 
-    jstep = jloop.make_train_step(cfg, tx, occluder_bank=jnp.asarray(bank))
-    step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(bank, "cpu"))
+    jstep = jloop.make_train_step(cfg, tx, occluder_bank=jnp.asarray(bank),
+                                  background_bank=backgrounds)
+    step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(bank, "cpu"),
+                           background_bank=None if backgrounds is None
+                           else torch.from_numpy(backgrounds))
     for i, batch in enumerate(batches):
         jstate, jm = jstep(jstate, batch)
         pm = step(port, batch_to_device(batch, "cpu"))
@@ -350,6 +381,40 @@ def test_train_profile_and_unported_options(tmp_path, host_batches, bank):
     # tests/test_torch_families.py): a missing backbone file is the caller's error
     with pytest.raises(FileNotFoundError, match="x.npz"):
         create_train_state(_cfg(**{"train.backbone_init": "x.npz"}), "cpu")
+
+
+@pytest.mark.parametrize("how", ["built", "given", "off", "unmasked"])
+def test_train_builds_the_background_bank_and_composites(tmp_path, host_batches, bank,
+                                                         monkeypatch, how):
+    """With `aug.background_prob` > 0 and masked data `train()` builds the
+    bank at the source side (or takes the one it is given), moves it to the
+    device once and composites every masked batch; with 0, or with batches
+    that carry no mask, it builds and uses none."""
+    built, composited = [], []
+    real_get, real_composite = trainer_mod.get_background_bank, device_mod.composite_background
+
+    def get_bank(bg_dir, side):
+        built.append((bg_dir, side))
+        return real_get(bg_dir, side=side)
+
+    def composite(src, mask, bg_bank, bg_params):
+        composited.append((tuple(bg_bank.shape), bg_bank.device.type))
+        return real_composite(src, mask, bg_bank, bg_params)
+
+    monkeypatch.setattr(trainer_mod, "get_background_bank", get_bank)
+    monkeypatch.setattr(device_mod, "composite_background", composite)
+    given = make_procedural_backgrounds(3, 128, 2)
+    cfg = _cfg(**{"train.num_steps": "2", "train.log_every": "2",
+                  "train.checkpoint_every": "2", "train.logdir": str(tmp_path),
+                  "aug.background_prob": "0.0" if how == "off" else "0.7"})
+    masked = [b if how == "unmasked" else _masked(b, seed=20 + i)[0]
+              for i, b in enumerate(host_batches[:2])]
+    state = train(cfg, iter(masked), occluder_bank=bank, device="cpu",
+                  background_bank=given if how == "given" else None)
+    assert state.step == 2
+    assert built == ([(None, 128)] if how == "built" else [])
+    n = {"built": 32, "given": 3, "off": 0, "unmasked": 0}[how]
+    assert composited == ([((n, 128, 128, 3), "cpu")] * 2 if n else [])
 
 
 def test_clip_uses_optax_rule():
