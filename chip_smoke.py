@@ -9,9 +9,9 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
 
   1 env      torch and CUDA versions, the card's name and power limit
   2 build    nvcc build of the kernel library, in seconds; registers and
-             spills of the crop warp, row-select, roll and lane-loop
-             kernels, and the row select's tensor-core instructions
-             (HGMMA) in its SASS
+             spills of the crop warp, row-select, roll, lane-loop, gather
+             and row-slice kernels, and the row select's tensor-core
+             instructions (HGMMA) in its SASS
   3 k3       stem max pool kernel == its plain version, bit for bit (NaN
              where it has NaN), in both variants: 16-byte vectors and scalar
   4 k1       crop warp kernel in each form (epilogue none, unit, normalize
@@ -71,13 +71,20 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              fall, the `torch` forward and backward kernels must have
              launched; 3 steps of (b) for the `keras` pair; one float32 step
              of (a) on the card and on the CPU
- 16 probes   each probe kernel == its plain version, and the roll, lane loop
-             and row slice also on `probes.prims.edge_cases` (negative and
-             out-of-range shifts and starts, widths not a multiple of 4,
-             reps 0, 1, 33 and above the width); then the probes' own entry
-             points (`probes.gather.main`, `probes.prims.main`) with their
-             times and rates; the row select's time by split, and one
-             `torch.bmm` over the stacked rolls as its yardstick
+ 16 probes   each probe kernel == its plain version; the gathers also on
+             `probes.gather.edge_cases` (W = 1, 13, 130, H = 1, B = 1, the
+             largest tile, unaligned inputs), and the shapes their tile
+             cannot hold must raise; the roll, lane loop and row slice also
+             on `probes.prims.edge_cases` (negative and out-of-range shifts
+             and starts, the ends of int32, widths not a multiple of 4, reps
+             0, 1, 33 and above the width, the row slice's run splits); the
+             gathers (each sweep shape apart, then summed) and the row slice
+             timed by device time beside an empty kernel on their grid (the
+             launch floor), the plain version and `take_along_dim`; then
+             the probes' own entry points (`probes.gather.main`,
+             `probes.prims.main`) with their times and rates; the row
+             select's time by split, and one `torch.bmm` over the stacked
+             rolls as its yardstick
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -85,18 +92,24 @@ record holds its launches on the path that runs it, its time, its plain
 version's, its bound (the larger of bytes moved over the card's 3.35 TB/s
 and operations over the card's peak for their type) and, where one PyTorch
 call computes the same function, that call's time; a pool record also holds
-its share of the bound. The roll and the lane loop count int32 adds at the
-INT32 pipe's rate (64 three-input adds, so 128 adds, a clock an SM, at the
-card's SM count and maximum SM clock), the lane loop also its shared-memory
-words (128 B a clock an SM); their records name the term that bounds them
+its share of the bound. The roll, the lane loop and the row slice count
+int32 adds at the INT32 pipe's rate (64 three-input adds, so 128 adds, a
+clock an SM, at the card's SM count and maximum SM clock), the lane loop
+also its shared-memory words (128 B a clock an SM), the row slice only the
+rows its starts touch; their records name the term that bounds them
 (`bound_term`: bytes, int32 adds or shared words; `bound_by` says bytes or
 operations), and add the bytes-only bound (`bound_bytes_ms`), both shares,
 and the kernel's time at reps 0 (`ms_reps0`: its loads and stores alone).
-The crop warp's, the row select's, the roll's and the lane loop's `ms` is
-device time from the profiler (their wrappers' host work outlasts the
-kernel, so CUDA events around back-to-back calls time the host; that
-reading is `call_ms`); the other kernels' `ms` is by CUDA events. Without CUDA it exits
-non-zero at once and prints no result. It imports no jax.
+The gathers' and the row slice's records add `floor_ms`, the device time
+of an empty kernel on their grid, block and shared memory; the gathers'
+`library_ms` is `take_along_dim` on int64 indices cast beforehand (ATen's
+gather kernel alone), their `plain_ms` the plain version with its cast,
+both by device time; the sweep's record sums its shapes and lists each
+(`per_shape`). The crop warp's and every probe's `ms` is device time from
+the profiler (their wrappers' host work outlasts the kernel, so CUDA events
+around back-to-back calls time the host; that reading is `call_ms`); the
+other kernels' `ms` is by CUDA events. Without CUDA it exits non-zero at
+once and prints no result. It imports no jax.
 """
 from __future__ import annotations
 
@@ -278,6 +291,10 @@ def loop_bound(n_bytes: float, n_adds: float, n_shared: float, rates: dict):
     return terms[term], "bytes" if term == "bytes" else "operations", term
 
 
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -300,15 +317,19 @@ def tie_count(x: torch.Tensor, y: torch.Tensor, mode: str = "same", pad_only: bo
     return total
 
 
-def device_ms(fn, kernel: str, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of a launch of the kernels whose name holds `kernel`,
-    by the profiler over `iters` calls of fn (each launches one). The
+def device_ms(fn, kernel, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of a call of fn, by the profiler over `iters` calls:
+    the time of the kernels whose name holds `kernel` (one launch a call),
+    or, for a tuple of names, of the kernels named there (as many launches
+    a call as the tuple has entries, as `launched_kernels` lists them). The
     profiler may miss launches of its window, so the mean is over the
     launches it recorded, at least half of them; a window that recorded
     fewer is profiled once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    unique = set(names)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -319,12 +340,36 @@ def device_ms(fn, kernel: str, iters: int = 20, warmup: int = 3) -> float:
             torch.cuda.synchronize()
         total, count = 0.0, 0
         for evt in prof.key_averages():
-            if evt.device_type == DeviceType.CUDA and kernel in evt.key:
+            if evt.device_type == DeviceType.CUDA and any(n in evt.key for n in unique):
                 total += evt.self_device_time_total
                 count += evt.count
-        if iters / 2 <= count <= iters:
-            return total / 1e3 / count
-    fail(f"the profiler saw {count} launches of {kernel} in {iters} calls, twice")
+        if iters / 2 <= count / len(names) <= iters:
+            return total / 1e3 / (count / len(names))
+    fail(f"the profiler saw {count} launches of {names} in {iters} calls, twice")
+
+
+def launched_kernels(fn, calls: int = 10) -> tuple:
+    """The names of the device kernels one call of fn launches, once for
+    each launch, by the profiler over `calls` calls after a warm-up call:
+    how a PyTorch call's own ATen kernels are found, to time them by
+    `device_ms`. The profiler may miss launches of a window, so a window
+    that saw none is profiled again, twice at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {evt.key: evt.count for evt in prof.key_averages()
+                  if evt.device_type == DeviceType.CUDA}
+        if counts:
+            return tuple(sorted(name for name, n in counts.items()
+                                for _ in range(max(1, round(n / calls)))))
+    fail("the profiler saw no device kernel of a call, three times")
 
 
 def kernel_resources(cuobjdump: str, lib_path, names):
@@ -936,6 +981,39 @@ def rowsel_times(prims, args, want) -> dict:
     return out
 
 
+def gather_times(gather, dev, case) -> dict:
+    """One gather shape (H, W, axis, dtype, B): the kernel against
+    take_along_dim, bit for bit; the kernel's device time, its launch floor
+    (an empty kernel on its grid), its time a call by CUDA events, the plain
+    version's device time (index cast and gather) and the library call's
+    (`take_along_dim` on int64 indices cast beforehand: ATen's gather kernel
+    alone), and its bound (bytes)."""
+    from metro_pose3d_tpu_torch.probes import time_ms
+
+    h, w, axis, dtype, b = case
+    x, idx = gather.make_case(h, w, axis, dtype, b, device=dev)
+    got, want = gather.gather_cuda(x, idx, axis), gather.gather_plain(x, idx, axis)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if not torch.equal(got, want):
+        fail(f"gather probe differs from take_along_dim at {(b, h, w)} axis {axis} {dtype}: "
+             f"max abs err {err}")
+    call = lambda: gather.gather_cuda(x, idx, axis)  # noqa: E731
+    plain = lambda: gather.gather_plain(x, idx, axis)  # noqa: E731
+    idx64 = idx.long()
+    library = lambda: torch.take_along_dim(x, idx64, dim=axis + 1)  # noqa: E731
+    kernel = "probe_gather_rows_kernel" if axis == 0 else "probe_gather_cols_kernel"
+    ms = device_ms(call, kernel, iters=50)
+    bms, by = bound(nbytes(x, idx, got), 0)
+    lib_names = launched_kernels(library)
+    return {"case": f"[{b},{h},{w}] axis {axis} {str(dtype)[6:]}", "max_abs_err": err,
+            "ms": ms, "floor_ms": device_ms(lambda: gather.gather_floor(x, idx, axis),
+                                            "probe_empty_kernel", iters=50),
+            "call_ms": time_ms(call), "plain_ms": device_ms(plain, launched_kernels(plain)),
+            "library_ms": device_ms(library, lib_names), "library_kernel": lib_names[0][:80],
+            "bound_ms": bms, "bound_by": by, "bound_share": bms / ms}
+
+
 def phase_probes(dev, card, rates):
     """16: each probe kernel against its plain version (exact), then the
     probes' entry points; the roll's and the lane loop's bounds at the
@@ -949,42 +1027,49 @@ def phase_probes(dev, card, rates):
     src = "metro_pose3d_tpu_torch/csrc/probes.cu"
     sources = {"rowsel": "metro_pose3d_tpu_torch/csrc/rowsel_mma.cu"}
 
-    def max_abs_err(got, want):
-        return float((got.double() - want.double()).abs().max())
-
     # the three probes of the first script, then the sweep of the second
-    sweep = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "max_abs_err": 0.0}
-    for i, (h, w, axis, dtype, b) in enumerate(gather.SHAPES):
-        x, idx = gather.make_case(h, w, axis, dtype, b, device=dev)
-        got, want = gather.gather_cuda(x, idx, axis), gather.gather_plain(x, idx, axis)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        if not torch.equal(got, want):
-            fail(f"gather probe differs from take_along_dim at {(b, h, w)} axis {axis} {dtype}: "
-                 f"max abs err {err}")
-        ms = time_ms(lambda: gather.gather_cuda(x, idx, axis))
-        plain = time_ms(lambda: gather.gather_plain(x, idx, axis))
+    sweep = []
+    for i, case in enumerate(gather.SHAPES):
+        r = gather_times(gather, dev, case)
         if i < len(ref):
             name = list(ref)[i]
-            bms, by = bound(nbytes(x, idx, got), 0)
             records.append({"name": f"probe_gather_{name}", "route": "cuda", "source": src,
-                            "replaces": ref[name], "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                            "library_ms": plain, "cases": [(h, w, axis, dtype, b)]})
+                            "replaces": ref[name], **r, "cases": [case]})
         else:
-            sweep["ms"] += ms
-            sweep["plain_ms"] += plain
-            sweep["bytes"] += nbytes(x, idx, got)
-            sweep["max_abs_err"] = max(sweep["max_abs_err"], err)
-        del x, idx, got, want
-    bms, by = bound(sweep["bytes"], 0)
+            sweep.append(r)
+    summed = {k: sum(r[k] for r in sweep) for k in ("ms", "floor_ms", "call_ms", "plain_ms",
+                                                      "library_ms", "bound_ms")}
     records.append({"name": "probe_gather_sweep", "route": "cuda", "source": src,
                     "replaces": "scripts/exp_pallas_gather2.py:33",
-                    "max_abs_err": sweep["max_abs_err"], "ms": sweep["ms"],
-                    "plain_ms": sweep["plain_ms"], "bound_ms": bms, "bound_by": by,
-                    "library_ms": sweep["plain_ms"], "cases": list(gather.SHAPES[len(ref):])})
-    print(f"[16 probes] gather: {len(gather.SHAPES)} shapes, rows and columns, int32 and "
-          f"float32: all equal to take_along_dim")
+                    "max_abs_err": max(r["max_abs_err"] for r in sweep), **summed,
+                    "bound_by": "bytes", "bound_share": summed["bound_ms"] / summed["ms"],
+                    "per_shape": sweep, "cases": list(gather.SHAPES[len(ref):])})
+    for r in records:
+        print(f"[16 probes] {r['name']} {r.get('case', 'summed over its shapes')}: kernel "
+              f"{r['ms']:.4f} ms device time ({r['bound_share']:.0%} of its {r['bound_ms']:.4f} "
+              f"ms bound, bytes; launch floor {r['floor_ms']:.4f} ms; {r['call_ms']:.4f} ms a "
+              f"call by CUDA events), plain {r['plain_ms']:.4f} ms, take_along_dim on int64 "
+              f"indices {r['library_ms']:.4f} ms  [{card}]")
+    for r in sweep:
+        print(f"[16 probes]   sweep {r['case']}: {r['ms']:.4f} ms (floor {r['floor_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f}, {r['bound_share']:.0%}), take_along_dim "
+              f"{r['library_ms']:.4f} ms")
+    edge = gather.edge_cases(device=dev)
+    for name, (x, idx, axis) in edge.items():
+        got, want = gather.gather_cuda(x, idx, axis), gather.gather_plain(x, idx, axis)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"gather edge case {name!r} differs from take_along_dim: max abs err "
+                 f"{max_abs_err(got, want)}")
+    for name, (x, idx, axis) in gather.untileable(device=dev).items():
+        try:
+            gather.gather_cuda(x, idx, axis)
+        except ValueError:
+            continue
+        fail(f"gather_cuda took {name}, a shape its tile cannot hold")
+    print(f"[16 probes] gather: {len(gather.SHAPES)} shapes and {len(edge)} edge cases, rows and "
+          f"columns, int32 and float32: all equal to take_along_dim; "
+          + ", ".join(gather.untileable()) + " raise")
 
     lines = {"lane_loop": 64, "rowsel": 100, "roll": 129, "dynslice": 158}
     by_kernel = {}
@@ -995,30 +1080,38 @@ def phase_probes(dev, card, rates):
         if got.dtype != want.dtype or not torch.equal(got, want):
             fail(f"probe {name!r} differs from its plain version: max abs err {err}")
         kernel = cuda_fn.__name__[:-len("_cuda")]
-        looped = kernel in ("roll", "lane_loop")
+        kname = "probe_dynslice_kernel" if kernel == "dynslice" else f"{kernel}_kernel"
+        n_bytes = nbytes(*args, got)
+        if kernel == "dynslice":
+            # the rows these starts touch, not the whole input
+            x, start = args
+            touched = prims.dynslice_touched_rows(start, x.shape[1], got.shape[1], prims.REPS)
+            n_bytes = touched * x.shape[2] * x.element_size() + nbytes(start, got)
         if kernel == "rowsel":
-            bms, by = bound(nbytes(*args, got), 2 * 160 * n_work, "bf16")  # multiply-adds
-        elif looped:
-            # one int32 add a rep; the lane loop also reads one shared word a
-            # rep, where a roll thread's outputs share one register window
-            bms, by, term = loop_bound(nbytes(*args, got), n_work,
-                                       4 * n_work if kernel == "lane_loop" else 0, rates)
+            bms, by = bound(n_bytes, 2 * 160 * n_work, "bf16")  # multiply-adds
         else:
-            bms, by = bound(nbytes(*args, got), n_work)
+            # one int32 add a rep; the lane loop also reads one shared word a
+            # rep, where a roll or row-slice thread's outputs share registers
+            bms, by, term = loop_bound(n_bytes, n_work,
+                                       4 * n_work if kernel == "lane_loop" else 0, rates)
         r = by_kernel.setdefault(kernel, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                           "bound_ms": 0.0, "bound_by": by, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if kernel == "rowsel":
             r.update(rowsel_times(prims, args, got))
-        elif looped:
-            r["ms"] += device_ms(lambda: cuda_fn(*args), f"{kernel}_kernel", iters=50)
+        else:
+            r["ms"] += device_ms(lambda: cuda_fn(*args), kname, iters=50)
             r["ms_reps0"] = r.get("ms_reps0", 0.0) + device_ms(
-                lambda: cuda_fn(*args, reps=0), f"{kernel}_kernel", iters=50)
+                lambda: cuda_fn(*args, reps=0), kname, iters=50)
             r["call_ms"] = r.get("call_ms", 0.0) + time_ms(lambda: cuda_fn(*args))
             r["bound_term"] = term
-            r["bound_bytes_ms"] = r.get("bound_bytes_ms", 0.0) + bound(nbytes(*args, got), 0)[0]
-        else:
-            r["ms"] += time_ms(lambda: cuda_fn(*args))
+            r["bound_bytes_ms"] = r.get("bound_bytes_ms", 0.0) + bound(n_bytes, 0)[0]
+        if kernel == "dynslice":
+            r["floor_ms"] = device_ms(lambda: prims.dynslice_floor(*args), "probe_empty_kernel",
+                                      iters=50)
+            # one rep: each start's one run of 64 rows staged, one add an output
+            r["ms_reps1"] = device_ms(lambda: cuda_fn(*args, reps=1), kname, iters=50)
+            r["touched_rows"] = touched / x.shape[0]  # of H a batch element
         r["plain_ms"] += time_ms(lambda: plain_fn(*args), iters=3, warmup=1)
         r["bound_ms"] += bms
         print(f"[16 probes] {name}: equal to its plain version")
@@ -1031,12 +1124,15 @@ def phase_probes(dev, card, rates):
                   + f"; bound {bms:.4f} ms ({by}); torch.bmm over the stacked rolls (float32, "
                   f"TF32 off) {r['library_ms']:.4f} ms, then its .sum over the reps "
                   f"{r['library_sum_ms']:.4f} ms  [{card}]")
-    for kernel in ("roll", "lane_loop"):
+    for kernel in ("roll", "lane_loop", "dynslice"):
         r = by_kernel[kernel]
         r.update(bound_share=r["bound_ms"] / r["ms"], bytes_share=r["bound_bytes_ms"] / r["ms"])
+        floor = (f"; {r['ms_reps1']:.4f} ms at reps 1; launch floor {r['floor_ms']:.4f} ms; "
+                 f"{r['touched_rows']:.1f} rows touched a batch element" if "floor_ms" in r
+                 else "")
         print(f"[16 probes] {kernel} (summed over its shapes): kernel {r['ms']:.4f} ms device "
               f"time ({r['call_ms']:.4f} ms a call by CUDA events; {r['ms_reps0']:.4f} ms at "
-              f"reps 0, its loads and stores alone), bound {r['bound_ms']:.4f} ms "
+              f"reps 0, its loads and stores alone{floor}), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_term']}, {r['bound_share']:.0%}), bytes-only bound "
               f"{r['bound_bytes_ms']:.4f} ms ({r['bytes_share']:.0%}), plain "
               f"{r['plain_ms']:.4f} ms  [{card}]")
@@ -1103,12 +1199,16 @@ def main() -> int:
           f"-> {build.build().parent}")
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     usage, hgmma = kernel_resources(cuobjdump, build.build(),
-                                    ("warp_crop", "rowsel", "roll_kernel", "lane_loop_kernel"))
+                                    ("warp_crop", "rowsel", "roll_kernel", "lane_loop_kernel",
+                                     "probe_gather_rows_kernel", "probe_gather_cols_kernel",
+                                     "probe_dynslice_kernel"))
     if not hgmma.get("rowsel"):
         fail(f"no HGMMA instruction in the row select's SASS: {hgmma}")
     print(f"[2 build] cuobjdump: warp_crop instances {usage.get('warp_crop')}, rowsel "
           f"{usage.get('rowsel')}, roll {usage.get('roll_kernel')}, lane loop "
-          f"{usage.get('lane_loop_kernel')}; HGMMA instructions in the rowsel SASS: "
+          f"{usage.get('lane_loop_kernel')}, gather rows {usage.get('probe_gather_rows_kernel')}, "
+          f"gather columns {usage.get('probe_gather_cols_kernel')}, row slice "
+          f"{usage.get('probe_dynslice_kernel')}; HGMMA instructions in the rowsel SASS: "
           f"{hgmma['rowsel']}")
     rates = card_rates()
     print(f"[2 build] rates for the looped probes' bounds: {rates['sms']} SMs at "

@@ -47,16 +47,16 @@ SIGNATURES = {
     # src, params, src_idx, out, B, N, TH, TW, S, epilogue, out_bf16, unit, scale, offset,
     # stream
     "metro_warp_crop": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _VP],
-    # the probes (csrc/probes.cu): x, idx, out, B, H, W, axis, stream
-    "metro_probe_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # the probes (csrc/probes.cu): x, idx, out, B, H, W, axis, floor_only, stream
+    "metro_probe_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     # x, idx, out, B, H, W, reps, stream
     "metro_probe_lane_loop": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     # p, s, out, B, R, K, N, reps, split, stream (csrc/rowsel_mma.cu)
     "metro_probe_rowsel": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     # x, shift, out, B, H, W, reps, stream
     "metro_probe_roll": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    # x, start, out, B, H, W, R, reps, stream
-    "metro_probe_dynslice": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # x, start, out, B, H, W, R, reps, floor_only, stream
+    "metro_probe_dynslice": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
 }
 
 _lock = threading.Lock()

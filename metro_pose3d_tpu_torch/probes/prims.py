@@ -14,9 +14,11 @@ Counterparts of the Pallas probes in `scripts/exp_pallas_prims.py`:
              int32 (`build_dynslice`)
 
 All are exact: integer sums, and one-hot rows times integers below 256
-summed in float32. Indices, shifts and starts are taken modulo their axis
-as Python takes them, so any int32 works; `edge_cases` draws such inputs,
-with widths and counts of reps the script does not use.
+summed in float32. Rep k's position is computed as the JAX kernels compute
+it: index, shift or start plus k as int32 addition, which wraps past
+INT32_MAX to INT32_MIN (`wrap32`), then taken modulo its axis as Python
+takes it, so any int32 works; `edge_cases` draws such inputs, with widths
+and counts of reps the script does not use.
 
     python -m metro_pose3d_tpu_torch.probes.prims
 """
@@ -36,11 +38,22 @@ LOOP_SMEM_WORDS = 48 * 1024 // 4
 LAUNCHES = dict.fromkeys(("lane_loop", "rowsel", "roll", "dynslice"), 0)  # kernel launches
 
 
-def _launch(name: str, fn_name: str, out: torch.Tensor, *args) -> torch.Tensor:
+def wrap32(t: torch.Tensor) -> torch.Tensor:
+    """An integer tensor folded into int32's range as two's-complement int32
+    addition folds it (jnp's int32 `+`), kept as int64."""
+    return (t.long() + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _call(fn_name: str, out: torch.Tensor, *args) -> torch.Tensor:
     lib = build.load()
     with torch.cuda.device(out.device):
         err = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream)
     build.check(err, fn_name)
+    return out
+
+
+def _launch(name: str, fn_name: str, out: torch.Tensor, *args) -> torch.Tensor:
+    _call(fn_name, out, *args)
     LAUNCHES[name] += 1
     return out
 
@@ -55,10 +68,12 @@ def _check_loop(name: str, x: torch.Tensor, reps: int, row_words: int) -> None:
 
 
 def lane_loop_plain(x: torch.Tensor, idx: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    """x, idx [B,H,W] int32: sum_k x[b, i, (idx[b,i,j] + k) % W], idx + k in
+    int32 arithmetic."""
     w = x.shape[2]
     acc = torch.zeros_like(x)
     for k in range(reps):
-        acc += torch.take_along_dim(x, (idx.long() + k) % w, dim=2)
+        acc += torch.take_along_dim(x, wrap32(idx.long() + k) % w, dim=2)
     return acc
 
 
@@ -111,12 +126,13 @@ def rowsel_cuda(p: torch.Tensor, s: torch.Tensor, reps: int = REPS,
 
 
 def roll_plain(x: torch.Tensor, shift: torch.Tensor, reps: int = REPS) -> torch.Tensor:
-    """x [B,H,W] int32, shift [B] int32: sum_k roll(x[b], shift[b] + k, columns)."""
+    """x [B,H,W] int32, shift [B] int32: sum_k roll(x[b], shift[b] + k, columns),
+    shift[b] + k in int32 arithmetic."""
     w = x.shape[2]
     cols = torch.arange(w, device=x.device)
     acc = torch.zeros_like(x)
     for k in range(reps):
-        src = (cols[None, :] - shift[:, None].long() - k) % w  # [B, W]
+        src = (cols[None, :] - wrap32(shift[:, None].long() + k)) % w  # [B, W]
         acc += torch.take_along_dim(x, src[:, None, :].expand_as(x), dim=2)
     return acc
 
@@ -138,28 +154,75 @@ def roll_cuda(x: torch.Tensor, shift: torch.Tensor, reps: int = REPS) -> torch.T
 def dynslice_plain(x: torch.Tensor, start: torch.Tensor, rows: int = 64,
                    reps: int = REPS) -> torch.Tensor:
     """x [B,H,W] int32, start [B] int32 -> [B,rows,W]:
-    sum_k x[b, (start[b] + k) % (H - rows) : + rows]."""
+    sum_k x[b, (start[b] + k) % (H - rows) : + rows], start[b] + k in int32
+    arithmetic."""
     b, h, w = x.shape
     r = torch.arange(rows, device=x.device)
     acc = torch.zeros((b, rows, w), dtype=x.dtype, device=x.device)
     for k in range(reps):
-        src = ((start.long() + k) % (h - rows))[:, None] + r[None, :]  # [B, rows]
+        src = (wrap32(start.long() + k) % (h - rows))[:, None] + r[None, :]  # [B, rows]
         acc += torch.take_along_dim(x, src[:, :, None].expand(b, rows, w), dim=1)
     return acc
 
 
-def dynslice_cuda(x: torch.Tensor, start: torch.Tensor, rows: int = 64,
-                  reps: int = REPS) -> torch.Tensor:
-    check_cuda("dynslice_cuda", x, start, dtypes=(torch.int32, torch.int32))
+def slice_runs(start: int, m: int, reps: int) -> list:
+    """[(position, length), ...]: the row slice's reps as runs of consecutive
+    positions, split where a position reaches m (back to 0) and where
+    start + k passes INT32_MAX (to INT32_MIN's position), as
+    `probe_dynslice_kernel` walks them (csrc/probes.cu)."""
+    kw = min(reps, 2 ** 31 - int(start))  # reps before the int32 wrap
+    runs, k, p = [], 0, int(start) % m
+    while k < reps:
+        n = min(reps - k, m - p, kw - k if k < kw else reps)
+        runs.append((p, n))
+        k, p = k + n, (p + n) % m
+        if k == kw:
+            p = -2 ** 31 % m
+    return runs
+
+
+def dynslice_touched_rows(start: torch.Tensor, h: int, rows: int, reps: int) -> int:
+    """Rows of x the row slice reads at these starts, summed over the batch:
+    a run of n positions from p reads rows p .. p + n + rows - 2."""
+    total = 0
+    for s in start.tolist():
+        touched = np.zeros(h, bool)
+        for p, n in slice_runs(s, h - rows, reps):
+            touched[p:p + n + rows - 1] = True
+        total += int(touched.sum())
+    return total
+
+
+def _dynslice(name: str, x: torch.Tensor, start: torch.Tensor, rows: int, reps: int,
+              floor_only: bool) -> torch.Tensor:
+    check_cuda(name, x, start, dtypes=(torch.int32, torch.int32))
     if (x.dim() != 3 or tuple(start.shape) != (x.shape[0],) or x.shape[1] > 512
-            or not 0 < rows < x.shape[1] or reps < 0):
-        raise ValueError(f"dynslice_cuda takes x [B,H<=512,W], start [B], 0 < rows < H and "
+            or not 0 < rows < x.shape[1] or reps < 0 or x.shape[0] > 65535):
+        raise ValueError(f"{name} takes x [B<=65535,H<=512,W], start [B], 0 < rows < H and "
                          f"reps >= 0, got {tuple(x.shape)}, {tuple(start.shape)}, rows {rows}, "
                          f"reps {reps}")
     b, h, w = x.shape
     out = torch.empty((b, rows, w), dtype=x.dtype, device=x.device)
-    return _launch("dynslice", "metro_probe_dynslice", out, x.data_ptr(), start.data_ptr(),
-                   out.data_ptr(), b, h, w, rows, reps)
+    return _call("metro_probe_dynslice", out, x.data_ptr(), start.data_ptr(), out.data_ptr(), b,
+                 h, w, rows, reps, int(floor_only))
+
+
+def dynslice_cuda(x: torch.Tensor, start: torch.Tensor, rows: int = 64,
+                  reps: int = REPS) -> torch.Tensor:
+    """The kernel: the reps split into runs of consecutive positions
+    (`slice_runs`), only the rows the runs touch staged, a thread's 4 output
+    rows of 4 columns summed in registers from each staged row."""
+    out = _dynslice("dynslice_cuda", x, start, rows, reps, False)
+    LAUNCHES["dynslice"] += 1
+    return out
+
+
+def dynslice_floor(x: torch.Tensor, start: torch.Tensor, rows: int = 64,
+                   reps: int = REPS) -> torch.Tensor:
+    """The launch floor of `dynslice_cuda`: an empty kernel on its grid,
+    block and shared memory (the output is left unwritten). Not a launch of
+    the row slice: `LAUNCHES` does not count it."""
+    return _dynslice("dynslice_floor", x, start, rows, reps, True)
 
 
 def make_cases(seed: int = 0, device="cpu", b: int = B) -> dict:
@@ -194,8 +257,9 @@ def edge_cases(device="cpu", seed: int = 1) -> dict:
     and row slice at widths that are not a multiple of 4 or below 32, row
     counts that are not a multiple of a block's rows, reps 0, 1, 33 and above
     W, and shifts, indices and starts that are negative, at least the axis,
-    or the ends of int32; and the roll at many batch elements and at rows
-    longer than a block's threads take in one pass."""
+    or the ends of int32; the roll at many batch elements and at rows
+    longer than a block's threads take in one pass; and the row slice's
+    reps split at H - rows, at the int32 wrap, and at both."""
     rng = np.random.RandomState(seed)
     lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
 
@@ -229,6 +293,18 @@ def edge_cases(device="cpu", seed: int = 1) -> dict:
         cases[f"row slice [{b},{h},{w}] rows {rows} x{reps}"] = (
             dynslice_cuda, dynslice_plain, (data(b, h, w), i32(starts(b, h - rows))),
             {"rows": rows, "reps": reps})
+    # the row slice's run splits: at H - rows alone, at the int32 wrap alone
+    # (its script's shape, and m = 30), and both in one batch element, in
+    # either order (m = 30: INT32_MAX - 10 wraps at 30 first, INT32_MAX - 2
+    # at INT32_MAX first)
+    for what, (b, h, w, rows), st in (
+            ("modular wrap", (4, 512, 128, 64), [447, 440, 385, 0]),
+            ("int32 wrap", (4, 512, 128, 64), [hi, hi - 5, hi - 62, hi - 63]),
+            ("int32 wrap", (3, 40, 13, 10), [hi - 1, hi - 8, hi - 31]),
+            ("both wraps", (4, 40, 13, 10), [hi - 10, hi - 2, hi - 20, 29])):
+        cases[f"row slice [{b},{h},{w}] rows {rows} x{REPS if h == 512 else 33} {what}"] = (
+            dynslice_cuda, dynslice_plain, (data(b, h, w), i32(st)),
+            {"rows": rows, "reps": REPS if h == 512 else 33})
     return cases
 
 

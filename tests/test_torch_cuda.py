@@ -384,14 +384,56 @@ def test_probe_kernels_match_plain(cuda):
 
 def test_probe_edge_cases_match_plain(cuda):
     """The roll, lane loop and row slice kernels on negative and out-of-range
-    shifts, indices and starts, widths that are not a multiple of 4 or below
-    32, and reps 0, 1, 33 and above the width: equal to their plain versions."""
+    shifts, indices and starts (the ends of int32 among them, where start + k
+    wraps), widths that are not a multiple of 4 or below 32, reps 0, 1, 33
+    and above the width, and the row slice's reps split at H - rows, at the
+    int32 wrap and at both: equal to their plain versions."""
     from metro_pose3d_tpu_torch.probes import prims
 
     cases = prims.edge_cases(device=cuda)
-    assert len(cases) == 20
+    assert len(cases) == 24
     for name, (cuda_fn, plain_fn, args, kw) in cases.items():
         assert torch.equal(cuda_fn(*args, **kw), plain_fn(*args, **kw)), name
+
+
+def test_gather_edge_cases_match_take_along_dim(cuda):
+    """The gather kernels on both axes and both dtypes at W = 1, 13, 130,
+    H = 1, B = 1, the largest strip and row a block holds, and an input or
+    index at a storage offset that breaks 16-byte alignment: bit for bit
+    `take_along_dim`. A shape the tile cannot hold raises, and the launch
+    floor is not counted as a launch."""
+    from metro_pose3d_tpu_torch.probes import gather
+
+    cases = gather.edge_cases(device=cuda)
+    assert len(cases) == 32
+    for name, (x, idx, axis) in cases.items():
+        before = gather.LAUNCHES.get(gather.case_key(x, axis), 0)
+        got = gather.gather_cuda(x, idx, axis)
+        assert gather.LAUNCHES[gather.case_key(x, axis)] == before + 1
+        assert torch.equal(got, gather.gather_plain(x, idx, axis)), name
+    for name, (x, idx, axis) in gather.untileable(device=cuda).items():
+        with pytest.raises(ValueError, match="shared memory"):
+            gather.gather_cuda(x, idx, axis)
+    x, idx = gather.make_case(64, 128, 0, torch.int32, 2, device=cuda)
+    counts = dict(gather.LAUNCHES)
+    gather.gather_floor(x, idx, 0)
+    gather.gather_floor(x, idx, 1)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == counts
+
+
+def test_dynslice_floor_is_not_a_launch(cuda):
+    from metro_pose3d_tpu_torch.probes import prims
+
+    x = torch.zeros((4, 512, 128), dtype=torch.int32, device=cuda)
+    start = torch.zeros(4, dtype=torch.int32, device=cuda)
+    before = prims.LAUNCHES["dynslice"]
+    prims.dynslice_floor(x, start)
+    torch.cuda.synchronize()
+    assert prims.LAUNCHES["dynslice"] == before
+    with pytest.raises(ValueError):
+        prims.dynslice_cuda(torch.zeros((1, 513, 8), dtype=torch.int32, device=cuda),
+                            torch.zeros(1, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.parametrize("family", ["torchvision", "keras_v2", "twofive"])
