@@ -85,6 +85,22 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              `probes.prims.main`) with their times and rates; the row
              select's time by split, and one `torch.bmm` over the stacked
              rolls as its yardstick
+ 17 int8     the int8 serving path (`model.quantize="int8"`): QK1 (the int8
+             implicit-GEMM conv) and QK2 (the elementwise int8 forms) bit
+             for bit their twins, in both variants, at the path's shapes
+             (the 3x3 convs of R50 v2 @ 256 at B=128, stage 1's elementwise
+             passes) and edge shapes (the 7x7/2 stem with C = 3, odd sizes,
+             C = 24, torch pads); `calibrate` on the card over 3 seeded
+             batches of 64; 3 crop-in + 3 tile-in requests of 64 at full
+             width (bf16, TTA): QK1, QK2, K3 (16-byte variant) and K1
+             (bf16 normalize only) must have launched; the calibrated model
+             in float32 on the card and on the CPU, logits within 0.05
+             max|logits3d| + 0.02; then (informative) each QK1 shape's
+             device time beside its bound (int8 operations at the card's
+             rate, or bytes) and `torch._int_mm` on the unfolded matrix,
+             QK2 beside its bytes bound, int8 crops/s beside bf16 in turns
+             (crop-in TTA B=64, no TTA B=128, tile-in TTA B=64), and a
+             profiler breakdown of int8 tile-in serving
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -100,6 +116,10 @@ rows its starts touch; their records name the term that bounds them
 (`bound_term`: bytes, int32 adds or shared words; `bound_by` says bytes or
 operations), and add the bytes-only bound (`bound_bytes_ms`), both shares,
 and the kernel's time at reps 0 (`ms_reps0`: its loads and stores alone).
+QK1's record sums the 16 3x3 convs of one backbone forward (`per_shape`
+lists each, with its count), its `library_ms` is `torch._int_mm` on the
+unfolded matrices; QK2's sums one launch of each form at stage 1
+(`per_form`); both are marked as not TPU kernels in `replaces`.
 The gathers' and the row slice's records add `floor_ms`, the device time
 of an empty kernel on their grid, block and shared memory; the gathers'
 `library_ms` is `take_along_dim` on int64 indices cast beforehand (ATen's
@@ -175,16 +195,18 @@ def card_info() -> str:
 
 def card_rates() -> dict:
     """-> {"int32": int32 adds a second, "shared": shared-memory bytes a
-    second, "sms", "mhz"}, from the card's SM count and the maximum SM clock
-    nvidia-smi reports. The INT32 pipe issues 64 three-input adds (IADD3,
-    two adds each: ptxas pairs a chain of adds into them) a clock an SM;
-    shared memory serves 128 bytes a clock an SM."""
+    second, "int8": dense int8 tensor-core operations a second, "sms",
+    "mhz"}, from the card's SM count and the maximum SM clock nvidia-smi
+    reports. The INT32 pipe issues 64 three-input adds (IADD3, two adds
+    each: ptxas pairs a chain of adds into them) a clock an SM; shared
+    memory serves 128 bytes a clock an SM; the tensor cores do 8192 dense
+    int8 operations (4096 multiply-adds) a clock an SM."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout
     mhz = float(out.strip().splitlines()[0].split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {"int32": sms * 64 * 2 * mhz * 1e6, "shared": sms * 128 * mhz * 1e6,
-            "sms": sms, "mhz": mhz}
+            "int8": sms * 8192 * mhz * 1e6, "sms": sms, "mhz": mhz}
 
 
 def crop_params(rng, b, tile, side, kind):
@@ -419,7 +441,8 @@ def profile_breakdown(fn, steps: int, label: str = "[12 t-time] profiler, train 
     total = sum(t for t, _ in kernels)
     if total == 0:
         return f"{label}: no device time recorded"
-    names = ("maxpool3x3s2_bwd_kernel", "maxpool3x3s2_kernel", "occluder_paste", "warp_crop")
+    names = ("maxpool3x3s2_bwd_kernel", "maxpool3x3s2_kernel", "occluder_paste", "warp_crop",
+             "int8_conv_kernel", "int8_elementwise_kernel")
     ours = {n: sum(t for t, k in kernels if n in k) for n in names}
     ops.sort(reverse=True)
     top = "; ".join(f"{k} {t / total:.1%}" for t, k in ops[:8])
@@ -1167,6 +1190,355 @@ def phase_probes(dev, card, rates):
     return records
 
 
+# QK1 at the path's shapes: the 3x3 convs of R50 v2 @ 256 (stride 16, each
+# stage's stride on its last unit) at the backbone batch of TTA at B=64,
+# name -> (B, C, H, W, N, k, stride, dilation, launches a forward)
+QK1_PATH = {
+    "3x3_s1_64": (128, 64, 64, 64, 64, 3, 1, 1, 2),
+    "3x3_s2_64": (128, 64, 64, 64, 64, 3, 2, 1, 1),
+    "3x3_s1_128": (128, 128, 32, 32, 128, 3, 1, 1, 3),
+    "3x3_s2_128": (128, 128, 32, 32, 128, 3, 2, 1, 1),
+    "3x3_s1_256": (128, 256, 16, 16, 256, 3, 1, 1, 6),
+    "3x3_dil2_512": (128, 512, 16, 16, 512, 3, 1, 2, 3),
+}
+# and its other shapes: the 7x7/2 stem under quantize_extras "stem" (C = 3,
+# the scalar variant), odd sizes, a C with no 16-byte runs, torch pads with
+# an N that ends inside a tile
+QK1_EDGE = {
+    "7x7_s2_stem_c3": (128, 3, 256, 256, 64, 7, 2, 1, "same"),
+    "odd_13x11": (3, 32, 13, 11, 24, 3, 2, 1, "same"),
+    "c24": (2, 24, 9, 10, 40, 3, 1, 1, "same"),
+    "torch_pads_n70": (2, 16, 10, 10, 70, 3, 2, 1, "torch"),
+}
+# QK2 at stage 1 of the path (backbone batch 128): form -> (shape, input dtype)
+QK2_PATH = {"quantize": ((128, 256, 64, 64), torch.bfloat16),
+            "junction": ((128, 64, 64, 64), torch.int32),
+            "dequant": ((128, 256, 64, 64), torch.int32)}
+# whole-model int8 logits, card against CPU in float32: the JAX package's own
+# bound for its fused against its unfused int8 graph (tests/test_quantize.py),
+# 0.05 max|logits3d| + 0.02: a value near a rounding edge of an int8 step may
+# round to the neighbouring step in one of two float32 computations
+INT8_LOGIT_BOUND = (0.05, 0.02)
+
+
+def int8_conv_inputs(gen, dev, b, c, h, w, n, k, stride, dil, padding="same"):
+    """Seeded int8 input (channels_last) and OHWI weights, the conv's pads
+    (XLA SAME or torch's symmetric), and a requant scale and offset as the
+    path makes them (m ~ a * sa * sw / sa_next, b ~ c / sa_next)."""
+    from metro_pose3d_tpu_torch.models.resnet import _same_pads
+
+    x = torch.randint(-127, 128, (b, h, w, c), generator=gen, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k, k, c), generator=gen, device=dev, dtype=torch.int8)
+    if padding == "same":
+        pads = (*_same_pads(h, k, stride, dil), *_same_pads(w, k, stride, dil))
+    else:
+        pads = ((k - 1) // 2 * dil,) * 4
+    m = torch.rand(n, generator=gen, device=dev) * 2e-4 + 2e-5
+    off = torch.randn(n, generator=gen, device=dev) * 20
+    return x.permute(0, 3, 1, 2), wq, pads, m, off
+
+
+def unfold_int8(x, k, stride, dil, pads):
+    """The implicit GEMM's A made explicit: [B*OH*OW, k*k*C] int8, taps in
+    (ky, kx, ci) order, zeros in the pads."""
+    from metro_pose3d_tpu_torch.ops.int8 import conv_out_size
+
+    b, c, h, w = x.shape
+    top, bottom, left, right = pads
+    oh = conv_out_size(h, k, stride, dil, top, bottom)
+    ow = conv_out_size(w, k, stride, dil, left, right)
+    xp = F.pad(x, (left, right, top, bottom))
+    views = [xp[:, :, ky * dil: ky * dil + (oh - 1) * stride + 1: stride,
+                kx * dil: kx * dil + (ow - 1) * stride + 1: stride].permute(0, 2, 3, 1)
+             for ky in range(k) for kx in range(k)]
+    return torch.stack(views, 3).reshape(b * oh * ow, k * k * c)
+
+
+def check_int8_conv(int8, x, wq, stride, dil, pads, epilogue, where, **kw):
+    """QK1 in each variant the tensors allow against its twin, bit for bit."""
+    want = int8.int8_conv_plain(x, wq, stride, dil, pads, epilogue, **kw)
+    widths = sorted({1, int8.vector_width(x.shape[1], x.data_ptr(), wq.data_ptr())})
+    for width in widths:
+        got = int8.int8_conv_cuda(x, wq, stride, dil, pads, epilogue, width=width, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"QK1 {where} {epilogue} width {width} differs from its twin: max abs err "
+                 f"{max_abs_err(got.float(), want.float())}")
+    return widths
+
+
+def phase_int8(rng, gen, dev, card, rates):
+    """17: the int8 serving path. QK1 and QK2 against their twins, bit for
+    bit, at the path's shapes and the edge shapes; `calibrate` on the card;
+    int8 serving at full width; the calibrated model in float32 on the card
+    and on the CPU; then times (informative). -> (kernel records, launches of
+    K1 and K3 on this path)."""
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+    from metro_pose3d_tpu_torch.evaluation.engine import (
+        TILE_KEYS, PoseEstimator, make_predict_fn,
+    )
+    from metro_pose3d_tpu_torch.geom.joints import H36M_17
+    from metro_pose3d_tpu_torch.init import init_metro_model
+    from metro_pose3d_tpu_torch.models.metro import MetroModel
+    from metro_pose3d_tpu_torch.models.quantize import QuantConv, calibrate
+    from metro_pose3d_tpu_torch.ops import int8, pool, warp
+    from metro_pose3d_tpu_torch.ops.color import normalize
+    from metro_pose3d_tpu_torch.probes import time_ms
+
+    # QK1: every epilogue at a path shape, requant (the path's) at all of
+    # them, and the edge shapes
+    inputs = {name: int8_conv_inputs(gen, dev, *shape[:8])
+              for name, shape in QK1_PATH.items()}
+    for name, (x, wq, pads, m, off) in inputs.items():
+        _, _, _, _, _, _, st, dil, _ = QK1_PATH[name]
+        forms = [("requant", dict(scale=m, bias=off))]
+        if name == "3x3_s1_64":
+            forms += [("requant", dict(scale=m, bias=off, relu=False)), ("acc", {}),
+                      ("dequant", dict(scale=m, bias=off, out_dtype=torch.bfloat16)),
+                      ("dequant", dict(scale=m, bias=None, out_dtype=torch.float32))]
+        for epi, kw in forms:
+            check_int8_conv(int8, x, wq, st, dil, pads, epi, name, **kw)
+    for name, (b, c, h, w, n, k, st, dil, padding) in QK1_EDGE.items():
+        x, wq, pads, m, off = int8_conv_inputs(gen, dev, b, c, h, w, n, k, st, dil, padding)
+        for epi, kw in (("acc", {}), ("requant", dict(scale=m, bias=off)),
+                        ("dequant", dict(scale=m, bias=off, out_dtype=torch.bfloat16))):
+            check_int8_conv(int8, x, wq, st, dil, pads, epi, name, **kw)
+        del x, wq
+    print(f"[17 int8] QK1 == its twin bit for bit: requant at the path's {len(QK1_PATH)} "
+          f"shapes (B=128), every epilogue at 3x3_s1_64, and acc/requant/dequant on "
+          f"{', '.join(QK1_EDGE)} (the scalar variant where C % 16 != 0)")
+
+    # QK2: every form at the path's stage-1 shapes and at small odd ones
+    cases = []
+    for form, (shape, dt) in QK2_PATH.items():
+        cases += [(form, shape, dt), (form, (3, 17, 5, 7), dt)]
+    cases += [("quantize", (2, 24, 9, 9), torch.float32),
+              ("dequant", (2, 24, 9, 9), torch.float32)]
+    qk2_inputs = {}
+    for form, shape, dt in cases:
+        c = shape[1]
+        if form == "quantize":
+            x = (torch.randn(shape, generator=gen, device=dev) * 3).to(
+                torch.bfloat16 if dt == torch.bfloat16 else torch.float32)
+            args, kw = (x.contiguous(memory_format=torch.channels_last),
+                        torch.tensor(0.02, device=dev)), {}
+        else:
+            acc = torch.randint(-2 ** 24, 2 ** 24, shape, generator=gen, device=dev,
+                                dtype=torch.int32)
+            sc = torch.rand(c, generator=gen, device=dev) * 1e-5 + 1e-7
+            args = (acc.contiguous(memory_format=torch.channels_last), sc)
+            out_dt = torch.float32 if shape[0] == 2 else torch.bfloat16
+            kw = (dict(bias=torch.randn(c, generator=gen, device=dev) * 5) if form == "junction"
+                  else dict(bias=None, out_dtype=out_dt))
+        want = int8.elementwise_plain(form, *args, **kw)
+        for width in (16, 1):
+            got = int8.int8_elementwise_cuda(form, *args, width=width, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"QK2 {form} {shape} width {width} differs from its twin")
+        if shape[0] == 128:
+            qk2_inputs[form] = (args, kw, want)
+    print(f"[17 int8] QK2 == its twin bit for bit, both variants: "
+          + "; ".join(f"{f} {tuple(s)} {str(d)[6:]}" for f, s, d in cases))
+
+    # calibrate on the card, then serve: the main path of this phase
+    side = 256
+    cfg8 = apply_overrides(Config(), {"model.quantize": "int8"})
+    model8 = init_metro_model(cfg8.model, SEED, dev)
+
+    def norm_crops(b):
+        u8 = torch.from_numpy(rng.randint(0, 256, (b, side, side, 3)).astype(np.uint8))
+        return normalize(u8.to(dev).float() / 255.0)
+
+    calib_batches = [norm_crops(BATCH) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calibrate(model8, calib_batches)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    amax = {n: float(m.amax) for n, m in model8.named_modules() if isinstance(m, QuantConv)}
+    if not amax or min(amax.values()) <= 0:
+        fail(f"calibration left a scale at 0: {sorted(amax.items(), key=lambda kv: kv[1])[:3]}")
+    print(f"[17 int8] calibrate: 3 batches of {BATCH} (R50@256 bf16, p99.9) in {calib_s:.2f} s, "
+          f"{len(amax)} int8 convs, amax {min(amax.values()):.4f}-{max(amax.values()):.4f}")
+    del calib_batches
+
+    est = PoseEstimator(cfg8, model8, H36M_17, flip_tta=True, reconstruct=True)
+    crop_reqs = [(rng.randint(0, 256, (BATCH, side, side, 3)).astype(np.uint8),
+                  crop_params(rng, BATCH, TILE, side, "normal")[3]) for _ in range(3)]
+    tile_reqs = [tile_batch(rng, BATCH, TILE, side) for _ in range(3)]
+    int8.reset_launches()
+    pool.reset_launches()
+    warp.reset_launches()
+    outs = [est.predict_crops(c, i) for c, i in crop_reqs]
+    outs += [est.predict_tiles(b) for b in tile_reqs]
+    torch.cuda.synchronize()
+    path = {"qk1": int8.launches("int8_conv"), "qk2": int8.launches("int8_elementwise"),
+            "pool": pool.MODE_LAUNCHES["same"], "warp": warp.LAUNCHES}
+    path_warp_forms = dict(warp.KERNEL_LAUNCHES)
+    by_kind = {f"{k[0][5:]}:{k[1]}:{k[2]}": n for k, n in int8.KERNEL_LAUNCHES.items() if n}
+    for out in outs:
+        for key, shape in (("pose3d_rootrel", (BATCH, 17, 3)), ("pose2d_px", (BATCH, 17, 2)),
+                           ("pose3d_abs", (BATCH, 17, 3))):
+            if tuple(out[key].shape) != shape or not bool(torch.isfinite(out[key]).all()):
+                fail(f"int8 serving output {key}: shape {tuple(out[key].shape)} or not finite")
+    if min(path.values()) == 0 or int8.launches("int8_conv", "requant", "vec16") == 0:
+        fail(f"int8 serving did not launch every kernel: {path}, {by_kind}")
+    for form in int8.FORMS:
+        if int8.launches("int8_elementwise", form) == 0:
+            fail(f"int8 serving launched no QK2 {form}: {by_kind}")
+    check_pool_variants("int8 serving")
+    check_warp_forms_launched("int8 serving", ("normalize", torch.bfloat16))
+    print(f"[17 int8] serve: 3 crop-in + 3 tile-in requests of {BATCH} (R50@256 bf16 int8, TTA, "
+          f"full reconstruction): outputs finite, launches {path}, by kind {by_kind}")
+
+    # the calibrated model in float32 on the card and on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = apply_overrides(Config(), {"model.quantize": "int8",
+                                       "model.compute_dtype": "float32"})
+    cpu32 = MetroModel(cfg32.model).eval()
+    cpu32.load_state_dict({k: v.cpu() for k, v in model8.state_dict().items()})
+    gpu32 = copy.deepcopy(cpu32).to(dev)
+    xb = norm_crops(2)
+    with torch.inference_mode():
+        got = [t.cpu() for t in gpu32(xb)]
+        want = cpu32(xb.cpu())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    rel, off = INT8_LOGIT_BOUND
+    lim = rel * float(want[0].abs().max()) + off
+    logit_err = [max_abs_err(g, w) for g, w in zip(got, want)]
+    if not max(logit_err) < lim:
+        fail(f"int8 float32 logits card vs CPU: {logit_err} >= {lim}")
+    print(f"[17 int8] float32 int8 logits card vs CPU, B=2, TF32 off: max abs diff 3D "
+          f"{logit_err[0]:.3e}, 2D {logit_err[1]:.3e} (bound {lim:.3e} = {rel} max|l3| + {off})")
+    del cpu32, gpu32
+
+    # times (informative; the card's name and power limit beside each)
+    per_shape, totals = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+                             "ops_ms": 0.0}
+    for name, (x, wq, pads, m, off) in inputs.items():
+        b, c, h, w, n, k, st, dil, count = QK1_PATH[name]
+        call = lambda: int8.int8_conv_cuda(x, wq, st, dil, pads, "requant", m, off)  # noqa: E731
+        out = call()
+        a_unf = unfold_int8(x, k, st, dil, pads)
+        w2 = wq.reshape(n, -1)
+        lib = lambda: torch._int_mm(a_unf, w2.t())  # noqa: E731
+        if not torch.equal(lib(), int8.int8_conv_cuda(x, wq, st, dil, pads).permute(
+                0, 2, 3, 1).reshape(-1, n)):
+            fail(f"QK1 {name}: the unfolded _int_mm differs from the kernel's accumulator")
+        macs = a_unf.shape[0] * n * a_unf.shape[1]
+        t_bytes = nbytes(x, wq, out, m, off) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * macs / rates["int8"] * 1e3
+        r = {"ms": device_ms(call, "int8_conv_kernel"),
+             "plain_ms": time_ms(lambda: int8.int8_conv_plain(x, wq, st, dil, pads, "requant",
+                                                               m, off), iters=5),
+             "library_ms": device_ms(lib, launched_kernels(lib)),
+             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+             else "operations", "count": count, "gmacs": macs / 1e9}
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        if name == "3x3_s1_64":  # the int32 `acc` epilogue too: four times the bytes out
+            r["acc_ms"] = device_ms(lambda: int8.int8_conv_cuda(x, wq, st, dil, pads),
+                                    "int8_conv_kernel")
+        per_shape[name] = r
+        for key in ("ms", "plain_ms", "library_ms"):
+            totals[key] += count * r[key]
+        totals["bytes_ms"] += count * t_bytes
+        totals["ops_ms"] += count * t_ops
+        print(f"[17 int8] QK1 {name} B={b} {c}->{n} {h}x{w}: {r['ms']:.4f} ms device time "
+              f"({r['gmacs']:.1f} G MACs, {2 * macs / r['ms'] / 1e9:.0f} TOP/s), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_share']:.0%}), _int_mm on "
+              f"the unfolded [{a_unf.shape[0]}, {a_unf.shape[1]}] {r['library_ms']:.4f} ms, "
+              f"twin {r['plain_ms']:.3f} ms"
+              + (f", acc epilogue {r['acc_ms']:.4f} ms" if "acc_ms" in r else "") + f"  [{card}]")
+        del a_unf
+    stem = QK1_EDGE["7x7_s2_stem_c3"]
+    x, wq, pads, m, off = int8_conv_inputs(gen, dev, *stem[:8])
+    stem_ms = device_ms(lambda: int8.int8_conv_cuda(x, wq, 2, 1, pads, "dequant", m, None,
+                                                    out_dtype=torch.bfloat16), "int8_conv_kernel")
+    del x, wq
+    qk1_bound = (max(totals["bytes_ms"], totals["ops_ms"]),
+                 "bytes" if totals["bytes_ms"] >= totals["ops_ms"] else "operations")
+    print(f"[17 int8] QK1 a backbone forward (16 convs, B=128): {totals['ms']:.4f} ms, bound "
+          f"{qk1_bound[0]:.4f} ms ({qk1_bound[1]}; bytes {totals['bytes_ms']:.4f}, operations "
+          f"{totals['ops_ms']:.4f}), _int_mm on the unfolded matrices {totals['library_ms']:.4f} "
+          f"ms; the scalar 7x7/2 stem (extras only) {stem_ms:.4f} ms  [{card}]")
+
+    per_form, qk2_tot = {}, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for form, (args, kw, want) in qk2_inputs.items():
+        call = lambda: int8.int8_elementwise_cuda(form, *args, **kw)  # noqa: E731
+        r = {"ms": device_ms(call, "int8_elementwise_kernel"),
+             "plain_ms": time_ms(lambda: int8.elementwise_plain(form, *args, **kw), iters=5),
+             "bound_ms": bound(nbytes(args[0], want), 0)[0]}
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        per_form[form] = r
+        for key in qk2_tot:
+            qk2_tot[key] += r[key]
+        print(f"[17 int8] QK2 {form} {tuple(args[0].shape)} {str(args[0].dtype)[6:]}: "
+              f"{r['ms']:.4f} ms device time, bytes bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_share']:.0%}), twin {r['plain_ms']:.3f} ms  [{card}]")
+
+    del inputs, qk2_inputs
+    torch.cuda.empty_cache()
+    bf16_model = init_metro_model(Config().model, SEED, dev)
+    for form in ("crops", "tiles"):
+        for flip_tta, b in ((True, BATCH), (False, 2 * BATCH)):
+            if form == "tiles" and not flip_tta:
+                continue
+            fns = {name: make_predict_fn(cfg_, H36M_17.mirror_mapping, root_index=0,
+                                         flip_tta=flip_tta, reconstruct=True,
+                                         from_tiles=form == "tiles")
+                   for name, cfg_ in (("bf16", Config()), ("int8", cfg8))}
+            if form == "crops":
+                u8 = torch.from_numpy(rng.randint(0, 256, (b, side, side, 3)).astype(np.uint8))
+                i = torch.from_numpy(crop_params(rng, b, TILE, side, "normal")[3])
+                inputs_ = (u8.to(dev), i.to(dev))
+            else:
+                tb = tile_batch(rng, b, TILE, side)
+                inputs_ = ({k: torch.from_numpy(tb[k]).to(dev) for k in TILE_KEYS},)
+            models = {"bf16": bf16_model, "int8": model8}
+            ms = {"bf16": [], "int8": []}
+            peak = {}
+            for name in ("bf16", "int8", "int8", "bf16"):
+                torch.cuda.reset_peak_memory_stats()
+                ms[name].append(time_ms(lambda: fns[name](models[name], *inputs_), iters=10))
+                peak[name] = torch.cuda.max_memory_allocated() / 2**30
+            what = f"{form}-in {'TTA' if flip_tta else 'no TTA'} B={b}"
+            print(f"[17 int8] serve {what}: int8 " + ", ".join(f"{t:.3f}" for t in ms["int8"])
+                  + f" ms/batch ({b / min(ms['int8']) * 1e3:.1f} crops/s, peak "
+                  f"{peak['int8']:.2f} GiB); bf16 " + ", ".join(f"{t:.3f}" for t in ms["bf16"])
+                  + f" ms/batch ({b / min(ms['bf16']) * 1e3:.1f} crops/s, peak "
+                  f"{peak['bf16']:.2f} GiB)  [{card}]")
+            if form == "tiles":
+                print(profile_breakdown(lambda: fns["int8"](model8, *inputs_), steps=5,
+                                        label=f"[17 int8] profiler, int8 {what}"))
+    del bf16_model, model8, est
+    torch.cuda.empty_cache()
+
+    records = [
+        {"name": "int8_conv", "route": "cuda", "source": "metro_pose3d_tpu_torch/csrc/int8_conv.cu",
+         "replaces": "metro_pose3d_tpu/models/quantize.py:191 (XLA's int8 conv, not a TPU "
+                     "kernel)",
+         "launches": path["qk1"], "max_abs_err": 0.0, "ms": totals["ms"],
+         "plain_ms": totals["plain_ms"], "bound_ms": qk1_bound[0], "bound_by": qk1_bound[1],
+         "library_ms": totals["library_ms"], "bound_share": qk1_bound[0] / totals["ms"],
+         "timed": "the 16 3x3 convs of one backbone forward at B=128, requant epilogue; "
+                  "library_ms: torch._int_mm on the unfolded matrices",
+         "stem_scalar_ms": stem_ms, "per_shape": per_shape},
+        {"name": "int8_elementwise", "route": "cuda",
+         "source": "metro_pose3d_tpu_torch/csrc/int8_quant.cu",
+         "replaces": "metro_pose3d_tpu/models/quantize.py:165-202 (elementwise passes XLA fuses "
+                     "into its int8 convs, not a TPU kernel)",
+         "launches": path["qk2"], "max_abs_err": 0.0, "ms": qk2_tot["ms"],
+         "plain_ms": qk2_tot["plain_ms"], "bound_ms": qk2_tot["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "bound_share": qk2_tot["bound_ms"] / qk2_tot["ms"],
+         "timed": "one launch of each form at stage 1 of the path (B=128), summed",
+         "per_form": per_form},
+    ]
+    return records, {"pool": path["pool"], "warp": path["warp"], "warp_forms": path_warp_forms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
@@ -1591,6 +1963,7 @@ def main() -> int:
     fam_launches = phase_families_serving(rng, dev, card)  # 14
     ftrain_launches = phase_families_training(rng, dev, card, bank_np)  # 15
     probe_records = phase_probes(dev, card, rates)  # 16
+    int8_records, int8_path = phase_int8(rng, gen, dev, card, rates)  # 17
 
     def kernel(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms, **more):
         return {"name": name, "route": "cuda",
@@ -1611,7 +1984,8 @@ def main() -> int:
     }
     record = {"kernels": [
         kernel("maxpool3x3s2_same", "maxpool3x3s2.cu", pallas_pool,
-               launches["pool"] + train_launches["pool"] + fam_launches["d_twofive"]["pool_same"],
+               launches["pool"] + train_launches["pool"] + fam_launches["d_twofive"]["pool_same"]
+               + int8_path["pool"],
                pool_err, pool_ms, pool_plain_ms, pool_bound, None,
                bound_share=pool_bound[0] / pool_ms, two_calls_ms=pool_two_calls_ms,
                ms_scalar=pool_scalar_ms),
@@ -1626,14 +2000,17 @@ def main() -> int:
                                       "ms_scalar") if k in r})
           for (mode, way), r in modes.items()],
         kernel("warp_crop", "warp_crop.cu", "metro_pose3d_tpu/ops/warp_pallas.py:415",
-               launches["warp"] + train_launches["warp"], warp_max, none["ms"], none["plain_ms"],
+               launches["warp"] + train_launches["warp"] + int8_path["warp"], warp_max, none["ms"],
+               none["plain_ms"],
                (none["bound_ms"], none["bound_by"]), None, call_ms=none["call_ms"],
                bound_share=none["bound_share"],
-               forms={f"{e}_{str(d)[6:]}": {**r, "launches": serve_forms[e, d] + train_forms[e, d]}
+               forms={f"{e}_{str(d)[6:]}": {**r, "launches": serve_forms[e, d] + train_forms[e, d]
+                                                + int8_path["warp_forms"][e, d]}
                       for (e, d), r in warp_forms.items()}),
         kernel("occluder_paste", "occluder_paste.cu", "metro_pose3d_tpu/ops/warp_pallas.py:507",
                train_launches["occluder"], occ_err, occ_ms, occ_plain_ms, occ_bound, None),
         *probe_records,
+        *int8_records,
     ]}
     for k in record["kernels"]:
         if k["launches"] == 0:

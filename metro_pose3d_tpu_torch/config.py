@@ -7,10 +7,13 @@ loads in the other), `apply_overrides` with dotted paths such as
 ``model.depth=8``, `config_to_json` and `ModelConfig.at_phase`.
 
 Fields that steer TPU-only machinery are kept so that one configuration
-file serves both packages. The port refuses `model.quantize != "none"` and
-`train.fused_steps > 1`, and ignores `model.quantize_*`,
-`aug.warp_sampler`, `aug.warp_newton_iters`, `train.fused_adam`, `mesh.*`
-and the host-pipeline fields of `data`.
+file serves both packages. The port refuses `train.fused_steps > 1`, and
+ignores `aug.warp_sampler`, `aug.warp_newton_iters`, `train.fused_adam`,
+`mesh.*` and the host-pipeline fields of `data`. Of the int8 fields it runs
+`model.quantize`, `quantize_calib`, `quantize_stages`, `quantize_extras`
+and `quantize_fused`, and validates `quantize_1x1_dot` and
+`quantize_layout` without effect (they choose between TPU emitters of the
+same integer sums).
 """
 from __future__ import annotations
 
@@ -48,8 +51,11 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"  # parameters stay float32
     matmul_precision: str = ""      # "" (platform default) | "highest"
                                     # (see `apply_matmul_precision`)
-    # The int8 inference path of the JAX package; not ported: the port
-    # refuses anything but "none" and ignores the other quantize_* fields.
+    # The int8 serving path (models/quantize.py): "none" | "int8" | "calib"
+    # | "calib:<pct>", with a calibration pass (`quantize.calibrate`) first.
+    # quantize_1x1_dot and quantize_layout are checked as the JAX package
+    # checks them and have no effect: they pick one of two TPU emitters of
+    # the same integer sums, and the port has one emitter for each conv.
     quantize: str = "none"
     quantize_calib: str = "p99.9"
     quantize_stages: str = "all"

@@ -1,10 +1,12 @@
 """Flax `variables` -> PyTorch `state_dict` for `MetroModel`, and a JAX
 `TrainState` -> the port's train state.
 
-The flax tree `{"params": ..., "batch_stats": ...}` maps by name: a module
-path `backbone/stage1_block1/conv1` becomes `backbone.stage1_block1.conv1`.
-Leaves: conv `kernel` HWIO -> `weight` OIHW; conv and BN `bias` and BN
-`scale` as they are (params); BN `mean`/`var` as they are (batch_stats).
+The flax tree `{"params": ..., "batch_stats": ..., "quant": ...}` maps by
+name: a module path `backbone/stage1_block1/conv1` becomes
+`backbone.stage1_block1.conv1`. Leaves: conv `kernel` HWIO -> `weight` OIHW;
+conv and BN `bias` and BN `scale` as they are (params); BN `mean`/`var` as
+they are (batch_stats); each int8 conv's `amax` a scalar buffer (quant, the
+calibrated input scales of `models/quantize.py`).
 Arrays are read through numpy, so jax is not imported here.
 """
 from __future__ import annotations
@@ -25,13 +27,17 @@ def _flatten(tree, prefix=()):
 def state_dict_from_flax(variables) -> dict:
     """Convert a flax MetroModel `variables` tree to float32 CPU tensors."""
     out = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "quant"):
         for path, leaf in _flatten(variables.get(collection, {})):
             arr = np.array(leaf, np.float32)  # a writable copy
             *module, name = path
             if name == "kernel":
                 arr, name = arr.transpose(3, 2, 0, 1), "weight"  # HWIO -> OIHW
-            out[".".join((*module, name))] = torch.from_numpy(np.ascontiguousarray(arr))
+            elif collection == "quant":
+                arr = arr.reshape(())  # a calibrated amax may carry a unit axis
+            # (ascontiguousarray makes a 0-d array 1-d)
+            out[".".join((*module, name))] = torch.from_numpy(
+                np.ascontiguousarray(arr)).reshape(arr.shape)
     return out
 
 

@@ -30,12 +30,13 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # no FMA contraction: the warp rounds every product and sum as the plain
 # PyTorch version does, because near the horizon a lens distortion folds
 # far-away rays back into the tile, and there the last ulp of a coordinate
-# moves the sample by many pixels.
+# moves the sample by many pixels; the int8 epilogues must equal their
+# twins bit for bit, with IEEE division in `quantize`.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 LIB_NAME = "libmetro_kernels.so"
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     # x, y, dtype, vec, B, H, W, C, OH, OW, pad_top, pad_left, fill, stream
@@ -57,6 +58,12 @@ SIGNATURES = {
     "metro_probe_roll": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     # x, start, out, B, H, W, R, reps, floor_only, stream
     "metro_probe_dynslice": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+    # the int8 serving path (csrc/int8_conv.cu, csrc/int8_quant.cu):
+    # x, w, out, scale, bias, B, H, W, C, OH, OW, N, KH, KW, stride, dil, pad_top,
+    # pad_left, epilogue, out_dtype, relu, vec, stream
+    "metro_int8_conv": [_VP] * 5 + [_I] * 17 + [_VP],
+    # x, scale, bias, out, form, in_dtype, out_dtype, relu, vec, n, C, stream
+    "metro_int8_elementwise": [_VP] * 4 + [_I] * 5 + [_LL, _I, _VP],
 }
 
 _lock = threading.Lock()

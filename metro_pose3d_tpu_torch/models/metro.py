@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 
 from metro_pose3d_tpu_torch.config import ModelConfig
-from metro_pose3d_tpu_torch.models.resnet import Conv, ResNet
+from metro_pose3d_tpu_torch.models.resnet import ResNet, _make_conv, parse_quantize_extras
 from metro_pose3d_tpu_torch.ops.decode import heatmap_to_image, heatmap_to_metric
 from metro_pose3d_tpu_torch.ops.soft_argmax import soft_argmax_2d, soft_argmax_3d
 
@@ -25,11 +25,14 @@ class MetroModel(nn.Module):
     """The model at one phase's output stride, resolved at build time
     (`ModelConfig.at_phase`): the test stride by default, the train stride
     with `train=True`. The parameter tree is the same at either stride.
-    Batch norm follows `.train()` / `.eval()`."""
+    Batch norm follows `.train()` / `.eval()`. With `model.quantize` it is the
+    int8 serving graph (`models/quantize.py`), which `train=True` refuses."""
 
     def __init__(self, cfg: ModelConfig, train: bool = False):
         super().__init__()
         cfg = cfg.at_phase(train=train)
+        if train and cfg.quantize != "none":
+            raise ValueError("model.quantize is inference-only; training runs the bf16 graph")
         if cfg.model_class not in DECODERS:
             raise ValueError(f"model_class {cfg.model_class!r} not in {sorted(DECODERS)}")
         if cfg.compute_dtype not in DTYPES:
@@ -38,8 +41,13 @@ class MetroModel(nn.Module):
         self.dtype = DTYPES[cfg.compute_dtype]
         self.backbone = ResNet(cfg, self.dtype)
         c = self.backbone.out_channels
-        self.head3d = Conv(c, cfg.num_joints * cfg.depth, 1, bias=True, dtype=self.dtype)
-        self.head2d = Conv(c, cfg.num_joints, 1, bias=True, dtype=self.dtype)
+        # int8 1x1 heads under quantize_extras "heads", their input (the
+        # features after bn_final and ReLU) calibrated like the block convs
+        quant = cfg.quantize if "heads" in parse_quantize_extras(cfg.quantize_extras) else "none"
+        self.head3d = _make_conv(c, cfg.num_joints * cfg.depth, 1, bias=True, dtype=self.dtype,
+                                 quantize=quant)
+        self.head2d = _make_conv(c, cfg.num_joints, 1, bias=True, dtype=self.dtype,
+                                 quantize=quant)
 
     def forward(self, crops):
         """crops [B,S,S,3] normalized float -> (logits3d [B,h,w,D,J],

@@ -6,7 +6,11 @@ Port of `metro_pose3d_tpu/models/resnet.py`: resnet50/101/152 and tiny
 (v1.5: `bn_stem` + ReLU before the pool, BN after every conv, ReLU after
 the add, no `bn_final`); `conv_padding` "same" | "torch" | "keras"; either
 `stride_position`; `v2_biases` (bias on the stem and on the convs that no BN
-follows). The space-to-depth stem and the int8 path are not ported.
+follows); the int8 serving path (`model.quantize`, `models/quantize.py`):
+its convs are `QuantConv`s with the same parameter names and an `amax`
+buffer each, in the stages of `quantize_stages`, with the stem and heads
+under `quantize_extras`, and the fused pre-activation bottleneck under
+`quantize_fused`. The space-to-depth stem is not ported.
 Parameters are float32 and cast to the compute dtype inside each op, as
 flax does with `param_dtype=float32`; batch norm follows `module.train()` /
 `.eval()`.
@@ -69,14 +73,18 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
+    def pads(self, h: int, w: int):
+        """(top, bottom, left, right) zero padding for an h x w input."""
+        if self.symmetric:
+            p = (self.k - 1) // 2 * self.dilation
+            return p, p, p, p
+        return (*_same_pads(h, self.k, self.stride, self.dilation),
+                *_same_pads(w, self.k, self.stride, self.dilation))
+
     def forward(self, x):
         weight = self.weight.to(self.dtype)
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        if self.symmetric:
-            pad = (self.k - 1) // 2 * self.dilation
-            return F.conv2d(x, weight, bias, self.stride, pad, self.dilation)
-        top, bottom = _same_pads(x.shape[2], self.k, self.stride, self.dilation)
-        left, right = _same_pads(x.shape[3], self.k, self.stride, self.dilation)
+        top, bottom, left, right = self.pads(*x.shape[2:])
         if (top, left) == (bottom, right):
             return F.conv2d(x, weight, bias, self.stride, (top, left), self.dilation)
         x = F.pad(x, (left, right, top, bottom))
@@ -147,6 +155,30 @@ class BatchNorm(nn.Module):
         return y, full_mean, gmean2.mean(dim=0) - full_mean * full_mean
 
 
+QUANTIZE_LAYOUTS = ("nhwc", "nchw")
+
+
+def parse_quantize_extras(extras: str) -> frozenset:
+    """Validate `model.quantize_extras` ("" or csv of stem/heads)."""
+    toks = frozenset(t.strip() for t in extras.split(",") if t.strip())
+    unknown = toks - {"stem", "heads"}
+    if unknown:
+        raise ValueError(
+            f"unknown quantize_extras {sorted(unknown)}; valid: stem, heads")
+    return toks
+
+
+def _make_conv(cin, cout, k, stride=1, dilation=1, bias=False, dtype=torch.float32,
+               conv_padding="same", quantize="none"):
+    """Block conv factory: `Conv`, or the int8 / calibration `QuantConv`
+    (`models/quantize.py`) with the same parameter names."""
+    if quantize == "none":
+        return Conv(cin, cout, k, stride, dilation, bias, dtype, conv_padding)
+    from metro_pose3d_tpu_torch.models.quantize import QuantConv
+
+    return QuantConv(cin, cout, k, stride, dilation, bias, dtype, conv_padding, mode=quantize)
+
+
 def _shortcut(x, strides: int):
     """A strided unit that keeps its width subsamples, it does not project."""
     return x if strides == 1 else x[:, :, ::strides, ::strides]
@@ -157,24 +189,32 @@ class Bottleneck(nn.Module):
 
     def __init__(self, cin: int, features: int, strides: int, dilation: int,
                  bn: dict, dtype, preact: bool = True, conv_padding: str = "same",
-                 v2_biases: bool = False):
+                 v2_biases: bool = False, quantize: str = "none", quantize_fused: bool = True):
         super().__init__()
         out = features * 4
         self.out_channels = out
         self.strides, self.preact = strides, preact
         self.change = cin != out
-        conv = dict(dtype=dtype, conv_padding=conv_padding)
+        # int8: the two junctions inside a pre-activation unit run fused
+        # (dequant, BN affine, ReLU and requant in one elementwise pass), and
+        # the activations between its convs stay int8; the residual stream
+        # stays in the compute dtype
+        self.fused = preact and quantize != "none" and quantize_fused
+        conv = dict(dtype=dtype, conv_padding=conv_padding, quantize=quantize)
+        inner_bn = BatchNorm
+        if self.fused:
+            from metro_pose3d_tpu_torch.models.quantize import BNAffine as inner_bn
         if preact:
             self.bn_pre = BatchNorm(cin, **bn, dtype=dtype)
         if self.change:
-            self.proj = Conv(cin, out, 1, strides, bias=preact and v2_biases, **conv)
+            self.proj = _make_conv(cin, out, 1, strides, bias=preact and v2_biases, **conv)
             if not preact:
                 self.bn_proj = BatchNorm(out, **bn, dtype=dtype)
-        self.conv1 = Conv(cin, features, 1, **conv)
-        self.bn1 = BatchNorm(features, **bn, dtype=dtype)
-        self.conv2 = Conv(features, features, 3, strides, dilation, **conv)
-        self.bn2 = BatchNorm(features, **bn, dtype=dtype)
-        self.conv3 = Conv(features, out, 1, bias=preact and v2_biases, **conv)
+        self.conv1 = _make_conv(cin, features, 1, **conv)
+        self.bn1 = inner_bn(features, **bn, dtype=dtype)
+        self.conv2 = _make_conv(features, features, 3, strides, dilation, **conv)
+        self.bn2 = inner_bn(features, **bn, dtype=dtype)
+        self.conv3 = _make_conv(features, out, 1, bias=preact and v2_biases, **conv)
         if not preact:
             self.bn3 = BatchNorm(out, **bn, dtype=dtype)
 
@@ -182,6 +222,13 @@ class Bottleneck(nn.Module):
         if self.preact:
             h = F.relu(self.bn_pre(x))
             shortcut = self.proj(h) if self.change else _shortcut(x, self.strides)
+            if self.fused and self.conv1.mode == "int8":  # not while calibrating
+                # conv1's int32 sums -> junction 1 (QK2) -> conv2 with
+                # junction 2 in its epilogue (QK1 requant) -> conv3 dequant
+                acc1 = self.conv1(h, out_mode="acc")
+                h = self.conv2.forward_requant(acc1, self.bn1.affine(), self.bn2.affine(),
+                                               self.conv3)
+                return shortcut + self.conv3.forward_int8(h)
             h = F.relu(self.bn1(self.conv1(h)))
             h = F.relu(self.bn2(self.conv2(h)))
             return shortcut + self.conv3(h)
@@ -197,21 +244,23 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, features: int, strides: int, dilation: int,
                  bn: dict, dtype, preact: bool = True, conv_padding: str = "same",
-                 v2_biases: bool = False):
+                 v2_biases: bool = False, quantize: str = "none", quantize_fused: bool = True):
         super().__init__()
         self.out_channels = features
         self.strides, self.preact = strides, preact
         self.change = cin != features
-        conv = dict(dtype=dtype, conv_padding=conv_padding)
+        # int8 junctions stay unfused here, as in the JAX package
+        conv = dict(dtype=dtype, conv_padding=conv_padding, quantize=quantize)
         if preact:
             self.bn_pre = BatchNorm(cin, **bn, dtype=dtype)
         if self.change:
-            self.proj = Conv(cin, features, 1, strides, bias=preact and v2_biases, **conv)
+            self.proj = _make_conv(cin, features, 1, strides, bias=preact and v2_biases, **conv)
             if not preact:
                 self.bn_proj = BatchNorm(features, **bn, dtype=dtype)
-        self.conv1 = Conv(cin, features, 3, strides, dilation, **conv)
+        self.conv1 = _make_conv(cin, features, 3, strides, dilation, **conv)
         self.bn1 = BatchNorm(features, **bn, dtype=dtype)
-        self.conv2 = Conv(features, features, 3, 1, dilation, bias=preact and v2_biases, **conv)
+        self.conv2 = _make_conv(features, features, 3, 1, dilation, bias=preact and v2_biases,
+                                **conv)
         if not preact:
             self.bn2 = BatchNorm(features, **bn, dtype=dtype)
 
@@ -228,13 +277,36 @@ class BasicBlock(nn.Module):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.quantize != "none":
-        raise NotImplementedError(
-            f"model.quantize={cfg.quantize!r} is not ported (the int8 inference path)")
     if cfg.backbone not in RESNET_DEPTHS:
         raise ValueError(f"unknown backbone {cfg.backbone!r}; known: {sorted(RESNET_DEPTHS)}")
     if cfg.conv_padding not in CONV_PADDINGS:
         raise ValueError(f"unknown conv_padding {cfg.conv_padding!r}; known: {CONV_PADDINGS}")
+    # the JAX package's checks of the quantize fields, with its messages
+    if cfg.quantize_layout not in QUANTIZE_LAYOUTS:
+        raise ValueError(f"unknown quantize_layout {cfg.quantize_layout!r}")
+    parse_quantize_extras(cfg.quantize_extras)
+    if cfg.quantize == "none":
+        return
+    from metro_pose3d_tpu_torch.models.quantize import check_1x1_dot_policy, check_mode
+
+    check_mode(cfg.quantize)
+    _quantized_stages(cfg)
+    if cfg.quantize == "int8":
+        check_1x1_dot_policy(cfg.quantize_1x1_dot)
+        if cfg.quantize_layout == "nchw" and cfg.quantize_stages != "all":
+            raise ValueError(
+                "quantize_layout='nchw' transposes the whole trunk once; mixed bf16/int8 "
+                "stages would need per-stage transposes - use quantize_stages='all' "
+                "(or layout='nhwc')")
+        if cfg.quantize_layout == "nchw" and cfg.backbone in BASIC_BLOCK:
+            raise ValueError("quantize_layout='nchw' supports bottleneck variants only")
+
+
+def _quantized_stages(cfg: ModelConfig):
+    """The 1-based stage numbers whose convs are quantized ("all" or csv)."""
+    if cfg.quantize_stages == "all":
+        return range(1, len(RESNET_DEPTHS[cfg.backbone]) + 1)
+    return {int(s) for s in cfg.quantize_stages.split(",") if s}
 
 
 class ResNet(nn.Module):
@@ -251,8 +323,13 @@ class ResNet(nn.Module):
         self.dtype, self.preact = dtype, cfg.preactivation
         # the pool's alignment follows the convs' padding
         self.pool_mode = cfg.conv_padding
-        self.conv_stem = Conv(3, base, 7, 2, bias=cfg.v2_biases, dtype=dtype,
-                              conv_padding=cfg.conv_padding)
+        # the stem joins the int8 graph only under quantize_extras "stem":
+        # its input is the normalized crop, roughly zero-mean, so symmetric
+        # int8 uses the full signed range there
+        stem_quant = (cfg.quantize if "stem" in parse_quantize_extras(cfg.quantize_extras)
+                      else "none")
+        self.conv_stem = _make_conv(3, base, 7, 2, bias=cfg.v2_biases, dtype=dtype,
+                                    conv_padding=cfg.conv_padding, quantize=stem_quant)
         if not self.preact:
             self.bn_stem = BatchNorm(base, **bn, dtype=dtype)
 
@@ -263,6 +340,7 @@ class ResNet(nn.Module):
         # (torchvision) stage s > 1 downsamples in its first unit.
         current_stride, dilation = 4, 1
         last_pos = cfg.stride_position == "last"
+        quantized = _quantized_stages(cfg) if cfg.quantize != "none" else ()
         self.blocks = []
         cin = base
         for stage, n_blocks in enumerate(depths):
@@ -280,11 +358,13 @@ class ResNet(nn.Module):
             elif stage_stride > 1:
                 current_stride *= stage_stride
             strided_unit = n_blocks - 1 if last_pos else 0
+            stage_quant = cfg.quantize if stage + 1 in quantized else "none"
             for i in range(n_blocks):
                 name = f"stage{stage + 1}_block{i + 1}"
                 block = block_cls(cin, features, stage_stride if i == strided_unit else 1,
                                   stage_dil, bn, dtype, preact=self.preact,
-                                  conv_padding=cfg.conv_padding, v2_biases=cfg.v2_biases)
+                                  conv_padding=cfg.conv_padding, v2_biases=cfg.v2_biases,
+                                  quantize=stage_quant, quantize_fused=cfg.quantize_fused)
                 self.add_module(name, block)
                 self.blocks.append(name)
                 cin = block.out_channels

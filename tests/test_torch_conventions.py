@@ -7,7 +7,8 @@ inputs to TF32 whenever the process turns TF32 on
 `torch.set_float32_matmul_precision("high")`): about 5e-4 relative, which
 costs millimetres in the soft-argmax decode after the 2200 mm box scale.
 So the port's device code has no matrix product outside the allow-list
-below, each entry with its reason. The convolutions go through cuDNN and
+below, each entry with its reason; the int8 product `torch._int_mm` counts
+as one too, so that every matrix product of the device code is listed. The convolutions go through cuDNN and
 follow `model.matmul_precision` (`config.apply_matmul_precision`).
 `geom/camera.py` is not device code: it works on numpy on the host.
 """
@@ -18,13 +19,16 @@ import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "metro_pose3d_tpu_torch"
 DEVICE_DIRS = ("ops", "models", "evaluation", "pipeline", "train", "probes")
-PRODUCTS = {"einsum", "matmul", "mm", "bmm"}
+PRODUCTS = {"einsum", "matmul", "mm", "bmm", "_int_mm"}
 
 # (file under the package, enclosing function) -> why the product may stay
 ALLOWED = {
     ("probes/prims.py", "rowsel_plain"):
         "exact at any precision: one-hot rows times integers below 256, the "
         "plain twin of the tensor-core row select, on no path",
+    ("ops/int8.py", "int_products"):
+        "integer sums, exact at any TF32 setting: int8 x int8 -> int32 by "
+        "torch._int_mm, for the 1x1 int8 convs and QK1's plain twin",
 }
 
 
@@ -79,7 +83,8 @@ def test_no_matrix_product_in_device_code_outside_the_allow_list():
      [(2, "h", "@"), (3, "h", "mm"), (3, "h", "bmm")]),
     ("@staticmethod\ndef k(a):\n    '''a @ b in a docstring'''\n    return a  # x @ y\n", []),
     ("x = torch.matmul(a, b)\n", [(1, None, "matmul")]),
+    ("def q(a, b):\n    return torch._int_mm(a, b)\n", [(2, "q", "_int_mm")]),
 ], ids=["einsum", "matmul_operator", "inplace_mm_bmm", "decorator_docstring_comment",
-        "module_level"])
+        "module_level", "int_mm"])
 def test_the_lint_finds_products_and_only_products(src, want):
     assert _products(ast.parse(src)) == want

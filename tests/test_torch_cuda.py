@@ -567,3 +567,157 @@ def test_pool_picks_the_scalar_variant_for_unaligned_tensors(cuda):
     _launched("bwd", 8, lambda: y.backward(torch.ones_like(y)))
     with pytest.raises(ValueError, match="width"):
         pool.max_pool_cuda(x, width=8)
+
+
+# ------------------------------------------------------------ int8 serving
+
+# QK1 shapes: (B, C, H, W, N, k, stride, dilation, padding): the 3x3 convs of
+# R50 v2 @ 256 at batch 8 (the path runs batch 128), with XLA SAME pads, then
+# odd sizes, the 7x7 stem with C = 3, a C that is no multiple of 16, torch
+# pads and an N that ends inside a tile
+INT8_CONV_SHAPES = {
+    "s1_64": (8, 64, 64, 64, 64, 3, 1, 1, "same"),
+    "s2_64": (8, 64, 64, 64, 64, 3, 2, 1, "same"),
+    "s1_128": (8, 128, 32, 32, 128, 3, 1, 1, "same"),
+    "s2_128": (8, 128, 32, 32, 128, 3, 2, 1, "same"),
+    "s1_256": (8, 256, 16, 16, 256, 3, 1, 1, "same"),
+    "dil2_512": (8, 512, 16, 16, 512, 3, 1, 2, "same"),
+    "stem_7x7_c3": (4, 3, 64, 64, 64, 7, 2, 1, "same"),
+    "odd_sizes": (3, 32, 13, 11, 24, 3, 2, 1, "same"),
+    "c24_unaligned": (2, 24, 9, 10, 40, 3, 1, 1, "same"),
+    "torch_pads_n70": (2, 16, 10, 10, 70, 3, 2, 1, "torch"),
+}
+
+
+def _int8_conv_case(cuda, name, seed=0):
+    from metro_pose3d_tpu_torch.models.resnet import _same_pads
+
+    b, c, h, w, n, k, s, d, padding = INT8_CONV_SHAPES[name]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(-127, 128, (b, h, w, c), generator=g, device=cuda, dtype=torch.int8)
+    x = x.permute(0, 3, 1, 2)  # channels_last
+    wq = torch.randint(-127, 128, (n, k, k, c), generator=g, device=cuda, dtype=torch.int8)
+    if padding == "same":
+        pads = (*_same_pads(h, k, s, d), *_same_pads(w, k, s, d))
+    else:
+        pads = ((k - 1) // 2 * d,) * 4
+    scale = torch.rand(n, generator=g, device=cuda) * 3e-4 + 1e-5
+    bias = torch.randn(n, generator=g, device=cuda) * 20
+    return x, wq, s, d, pads, scale, bias
+
+
+@pytest.mark.parametrize("epilogue", ["acc", "requant", "requant_norelu", "dequant_f32",
+                                      "dequant_bf16", "dequant_bf16_nobias"])
+@pytest.mark.parametrize("shape", sorted(INT8_CONV_SHAPES))
+def test_int8_conv_kernel_bit_exact(cuda, shape, epilogue):
+    from metro_pose3d_tpu_torch.ops import int8
+
+    x, wq, s, d, pads, scale, bias = _int8_conv_case(cuda, shape)
+    epi, rest = (epilogue.split("_", 1) + [""])[:2]
+    kw = {"acc": {}, "requant": dict(scale=scale, bias=bias, relu=rest != "norelu"),
+          "dequant": dict(scale=scale, bias=None if rest.endswith("nobias") else bias,
+                          out_dtype=torch.float32 if rest == "f32" else torch.bfloat16)}[epi]
+    want = int8.int8_conv_plain(x, wq, s, d, pads, epi, **kw)
+    widths = {1, int8.vector_width(x.shape[1], x.data_ptr(), wq.data_ptr())}
+    if shape == "c24_unaligned":
+        assert widths == {1}
+    for width in sorted(widths):
+        before = int8.launches("int8_conv", epi, "scalar" if width == 1 else "vec16")
+        got = int8.int8_conv_cuda(x, wq, s, d, pads, epi, width=width, **kw)
+        torch.cuda.synchronize()
+        assert int8.launches("int8_conv", epi, "scalar" if width == 1 else "vec16") == before + 1
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, want), (shape, epilogue, width)
+
+
+@pytest.mark.parametrize("form", ["quantize_f32", "quantize_bf16", "junction", "junction_norelu",
+                                  "dequant_f32", "dequant_bf16", "dequant_bf16_nobias"])
+@pytest.mark.parametrize("shape", [(128, 256, 64, 64), (2, 17, 5, 3), (3, 24, 7, 9)])
+def test_int8_elementwise_kernel_bit_exact(cuda, shape, form):
+    from metro_pose3d_tpu_torch.ops import int8
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    c = shape[1]
+    kind, rest = (form.split("_", 1) + [""])[:2]
+    if kind == "quantize":
+        x = torch.randn(shape, generator=g, device=cuda) * 3
+        x.view(-1)[:4] = torch.tensor([0.5, -0.5, 1.5, 2.5], device=cuda) * 0.02  # ties
+        x = x.to(torch.bfloat16 if rest == "bf16" else torch.float32)
+        args = (x.contiguous(memory_format=torch.channels_last),
+                torch.tensor(0.02, device=cuda))
+        kw = {}
+    else:
+        acc = torch.randint(-2 ** 24, 2 ** 24, shape, generator=g, device=cuda, dtype=torch.int32)
+        s = torch.rand(c, generator=g, device=cuda) * 1e-5 + 1e-7
+        b = torch.randn(c, generator=g, device=cuda) * 5
+        args = (acc.contiguous(memory_format=torch.channels_last), s)
+        kw = (dict(bias=b, relu=rest != "norelu") if kind == "junction" else
+              dict(bias=None if rest.endswith("nobias") else b,
+                   out_dtype=torch.float32 if rest == "f32" else torch.bfloat16))
+    want = int8.elementwise_plain(kind, *args, **kw)
+    for width in (16, 1):
+        got = int8.int8_elementwise_cuda(kind, *args, width=width, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (shape, form, width)
+
+
+def test_int8_elementwise_unaligned_picks_the_scalar_variant(cuda):
+    from metro_pose3d_tpu_torch.ops import int8
+
+    base = torch.randint(-1000, 1000, (2 * 7 * 5 * 16 + 1,), device=cuda, dtype=torch.int32)
+    acc = base[1:].view(2, 7, 5, 16).permute(0, 3, 1, 2)
+    assert acc.is_contiguous(memory_format=torch.channels_last) and acc.data_ptr() % 16 != 0
+    s = torch.full((16,), 1e-3, device=cuda)
+    before = int8.launches("int8_elementwise", "dequant", "scalar")
+    got = int8.int8_elementwise("dequant", acc, s, out_dtype=torch.float32)
+    assert int8.launches("int8_elementwise", "dequant", "scalar") == before + 1
+    assert torch.equal(got, int8.elementwise_plain("dequant", acc, s, out_dtype=torch.float32))
+    with pytest.raises(ValueError, match="width"):
+        int8.int8_elementwise_cuda("dequant", acc, s, out_dtype=torch.float32, width=16)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 17), (16, 8, 8), (300, 3, 5), (4096, 2048, 136)])
+def test_int_products_pad_to_what_int_mm_takes(cuda, m, k, n):
+    from metro_pose3d_tpu_torch.ops import int8
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8)
+    got = int8.int_products(a, w.t())
+    assert got.shape == (m, n) and got.is_contiguous()
+    assert torch.equal(got.cpu(), torch._int_mm(a.cpu(), w.t().cpu()))
+
+
+@pytest.mark.parametrize("over", [{}, {"quantize_fused": "false"},
+                                  {"quantize_extras": "stem,heads"},
+                                  {"preactivation": "false", "conv_padding": "torch"}],
+                         ids=["fused", "unfused", "extras", "v1_5"])
+def test_tiny_int8_serving_on_card_matches_cpu(cuda, over):
+    """A tiny int8 model calibrated on the CPU serves on the card (every
+    kernel launched) and on the CPU: the int8 graphs take the same integer
+    sums, so they differ only where a float32 activation before a quantize
+    rounds otherwise on the card (cuDNN's convolutions, float32 batch norm)."""
+    from metro_pose3d_tpu_torch.models.quantize import calibrate
+    from metro_pose3d_tpu_torch.ops import int8
+
+    over = {"model.backbone": "tiny", "model.proc_side": "64", "model.depth": "4",
+            "model.compute_dtype": "float32", "model.quantize": "int8",
+            **{f"model.{k}": v for k, v in over.items()}}
+    cfg = apply_overrides(Config(), over)
+    cpu = init_metro_model(cfg.model, 5, "cpu")
+    rng = np.random.RandomState(5)
+    calibrate(cpu, [torch.from_numpy(rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32))
+                    for _ in range(2)])
+    card = init_metro_model(cfg.model, 5, cuda)
+    card.load_state_dict(cpu.state_dict())
+    crops = torch.from_numpy(rng.randint(0, 256, (3, 64, 64, 3)).astype(np.uint8))
+    intr = torch.tensor([[90.0, 0, 31.5], [0, 90.0, 31.5], [0, 0, 1]]).expand(3, 3, 3).contiguous()
+    fn = make_predict_fn(cfg, np.arange(17), root_index=0, flip_tta=True, reconstruct=False)
+    int8.reset_launches()
+    got = fn(card, crops.to(cuda), intr.to(cuda))
+    torch.cuda.synchronize()
+    assert int8.launches("int8_conv") > 0 and int8.launches("int8_elementwise") > 0
+    want = fn(cpu, crops, intr)
+    for key in want:
+        assert float((got[key].cpu() - want[key]).abs().max()) < {"pose3d_rootrel": 5.0,
+                                                                  "pose2d_px": 0.5}[key], key

@@ -222,8 +222,8 @@ def test_block_shapes_and_refusals():
     assert model.backbone.out_channels == 512  # `features`, not 4 * features
     assert len(model.backbone.blocks) == 16
     assert MetroModel(_cfg().model).backbone.out_channels == 8 * 8 * 4
-    with pytest.raises(NotImplementedError, match="quantize"):
-        MetroModel(_cfg(quantize="int8").model)
+    with pytest.raises(ValueError, match="quantize_extras"):
+        MetroModel(_cfg(quantize="int8", quantize_extras="stem,head").model)
     with pytest.raises(ValueError, match="conv_padding"):
         MetroModel(_cfg(conv_padding="valid").model)
     with pytest.raises(ValueError, match="model_class"):

@@ -93,18 +93,16 @@ def test_converted_tree_matches_port_and_init():
     ("model_class", "twofive"),
 ])
 def test_unported_options_raise(field, value):
-    """Only the int8 path is still refused; every other option builds, with
-    the leaves the flax tree has for it (parity: tests/test_torch_families.py)."""
+    """No option is refused any more; every one builds, with the leaves the
+    flax tree has for it (parity: tests/test_torch_families.py and, for the
+    int8 path and its `amax` scales, tests/test_torch_quantize.py)."""
     cfg = _cfg(**{field: value}).model
-    if field == "quantize":
-        with pytest.raises(NotImplementedError, match=field):
-            MetroModel(cfg)
-        return
     names = set(MetroModel(cfg).state_dict())
     expected = {
         "conv_padding": "backbone.bn_final.scale", "preactivation": "backbone.bn_stem.scale",
         "backbone": "backbone.stage4_block2.conv2.weight",
         "v2_biases": "backbone.conv_stem.bias", "model_class": "head3d.weight",
+        "quantize": "backbone.stage1_block1.conv2.amax",
     }[field]
     assert expected in names
     assert ("backbone.bn_final.scale" in names) == (field != "preactivation")

@@ -331,8 +331,8 @@ def test_gather_limits_are_the_kernels():
 def test_build_signatures_match_the_c_entry_points():
     """Each `extern "C"` entry point of csrc/ takes the ctypes arguments
     `build.SIGNATURES` gives it: a pointer for each pointer, int for int,
-    float for float."""
-    kinds = {"_VP": build._VP, "int": build._I, "float": build._F}
+    float for float, long long for long long."""
+    kinds = {"_VP": build._VP, "int": build._I, "float": build._F, "long": build._LL}
     found = {}
     for path in Path(build.CSRC).glob("*.cu"):
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', path.read_text()):
