@@ -9,9 +9,9 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
 
   1 env      torch and CUDA versions, the card's name and power limit
   2 build    nvcc build of the kernel library, in seconds; registers and
-             spills of the crop warp, row-select, roll, lane-loop, gather
-             and row-slice kernels, and the row select's tensor-core
-             instructions (HGMMA) in its SASS
+             spills of the crop warp, row-select, roll, lane-loop, gather,
+             row-slice and QK1 wgmma kernels, and the warpgroup tensor-core
+             instructions (HGMMA, IGMMA) in the row select's and QK1's SASS
   3 k3       stem max pool kernel == its plain version, bit for bit (NaN
              where it has NaN), in both variants: 16-byte vectors and scalar
   4 k1       crop warp kernel in each form (epilogue none, unit, normalize
@@ -86,21 +86,26 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              select's time by split, and one `torch.bmm` over the stacked
              rolls as its yardstick
  17 int8     the int8 serving path (`model.quantize="int8"`): QK1 (the int8
-             implicit-GEMM conv) and QK2 (the elementwise int8 forms) bit
-             for bit their twins, in both variants, at the path's shapes
-             (the 3x3 convs of R50 v2 @ 256 at B=128, stage 1's elementwise
-             passes) and edge shapes (the 7x7/2 stem with C = 3, odd sizes,
-             C = 24, torch pads); `calibrate` on the card over 3 seeded
-             batches of 64; 3 crop-in + 3 tile-in requests of 64 at full
-             width (bf16, TTA): QK1, QK2, K3 (16-byte variant) and K1
-             (bf16 normalize only) must have launched; the calibrated model
-             in float32 on the card and on the CPU, logits within 0.05
-             max|logits3d| + 0.02; then (informative) each QK1 shape's
-             device time beside its bound (int8 operations at the card's
-             rate, or bytes) and `torch._int_mm` on the unfolded matrix,
-             QK2 beside its bytes bound, int8 crops/s beside bf16 in turns
-             (crop-in TTA B=64, no TTA B=128, tile-in TTA B=64), and a
-             profiler breakdown of int8 tile-in serving
+             implicit-GEMM conv) bit for bit its twin under every epilogue
+             and output type at the path's shapes (the 16 3x3 and the 36
+             1x1 convs of R50 v2 @ 256 at B=128, `QK1_PATH`,
+             `QK1_PATH_1X1`) in the wgmma variant, and at the edge shapes
+             (the 7x7/2 stem with C = 3, odd sizes, C = 24, torch pads with
+             N = 70) in both variants; QK2 (the elementwise int8 forms) in
+             both variants at stage 1's shapes; `calibrate` on the card
+             over 3 seeded batches of 64; 3 crop-in + 3 tile-in requests of
+             64 at full width (bf16, TTA), which must take route B: 52 QK1
+             launches a forward, all wgmma (32 requant, 20 dequant), 20 QK2
+             quantize and no `torch._int_mm`, with K3 (16-byte variant) and
+             K1 (bf16 normalize only); the calibrated model in float32 on
+             the card and on the CPU, logits within 0.05 max|logits3d| +
+             0.02; then (informative) each QK1 path shape's device time
+             beside its bound (int8 operations at the card's rate, or
+             bytes), `torch._int_mm` on the same sums and, for a 1x1 conv,
+             `_int_mm` + the QK2 form it replaced; QK2 beside its bytes
+             bound, int8 crops/s beside bf16 in turns (crop-in TTA B=64, no
+             TTA B=128, tile-in TTA B=64), and a profiler breakdown of int8
+             tile-in serving
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -116,9 +121,10 @@ rows its starts touch; their records name the term that bounds them
 (`bound_term`: bytes, int32 adds or shared words; `bound_by` says bytes or
 operations), and add the bytes-only bound (`bound_bytes_ms`), both shares,
 and the kernel's time at reps 0 (`ms_reps0`: its loads and stores alone).
-QK1's record sums the 16 3x3 convs of one backbone forward (`per_shape`
-lists each, with its count), its `library_ms` is `torch._int_mm` on the
-unfolded matrices; QK2's sums one launch of each form at stage 1
+QK1's record sums the 52 convs of one backbone forward (`per_shape`
+lists each, with its count; `parts` sums the 3x3 and the 1x1 ones apart),
+its `library_ms` is `torch._int_mm` on the same integer sums (the unfolded
+input of a 3x3); QK2's sums one launch of each form at stage 1
 (`per_form`); both are marked as not TPU kernels in `replaces`.
 The gathers' and the row slice's records add `floor_ms`, the device time
 of an empty kernel on their grid, block and shared memory; the gathers'
@@ -346,7 +352,8 @@ def device_ms(fn, kernel, iters: int = 20, warmup: int = 3) -> float:
     a call as the tuple has entries, as `launched_kernels` lists them). The
     profiler may miss launches of its window, so the mean is over the
     launches it recorded, at least half of them; a window that recorded
-    fewer is profiled once more."""
+    fewer is profiled again, four windows at most (two in a row once
+    recorded none of the plain gather's launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -355,7 +362,7 @@ def device_ms(fn, kernel, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -367,7 +374,7 @@ def device_ms(fn, kernel, iters: int = 20, warmup: int = 3) -> float:
                 count += evt.count
         if iters / 2 <= count / len(names) <= iters:
             return total / 1e3 / (count / len(names))
-    fail(f"the profiler saw {count} launches of {names} in {iters} calls, twice")
+    fail(f"the profiler saw {count} launches of {names} in {iters} calls, four times")
 
 
 def launched_kernels(fn, calls: int = 10) -> tuple:
@@ -395,9 +402,10 @@ def launched_kernels(fn, calls: int = 10) -> tuple:
 
 
 def kernel_resources(cuobjdump: str, lib_path, names):
-    """-> ({name: ["REG:n STACK:n LOCAL:n", ...]}, {name: HGMMA count}) for
-    the kernels of the built library whose mangled names hold one of
-    `names` (one entry a template instance), from cuobjdump."""
+    """-> ({name: ["REG:n STACK:n LOCAL:n", ...]}, {name: warpgroup MMA
+    count}) for the kernels of the built library whose mangled names hold
+    one of `names` (one entry a template instance), from cuobjdump; the
+    count is of HGMMA (floating point) and IGMMA (integer) instructions."""
     usage = subprocess.run([cuobjdump, "--dump-resource-usage", str(lib_path)],
                            capture_output=True, text=True, timeout=120, check=True).stdout
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
@@ -414,7 +422,7 @@ def kernel_resources(cuobjdump: str, lib_path, names):
     for block in sass.split("Function : ")[1:]:
         for name in names:
             if name in block.split("\n", 1)[0]:
-                hgmma[name] = hgmma.get(name, 0) + block.count("HGMMA")
+                hgmma[name] = hgmma.get(name, 0) + block.count("HGMMA") + block.count("IGMMA")
     return found, hgmma
 
 
@@ -442,7 +450,7 @@ def profile_breakdown(fn, steps: int, label: str = "[12 t-time] profiler, train 
     if total == 0:
         return f"{label}: no device time recorded"
     names = ("maxpool3x3s2_bwd_kernel", "maxpool3x3s2_kernel", "occluder_paste", "warp_crop",
-             "int8_conv_kernel", "int8_elementwise_kernel")
+             "int8_conv_", "int8_elementwise_kernel")
     ours = {n: sum(t for t, k in kernels if n in k) for n in names}
     ops.sort(reverse=True)
     top = "; ".join(f"{k} {t / total:.1%}" for t, k in ops[:8])
@@ -1201,6 +1209,29 @@ QK1_PATH = {
     "3x3_s1_256": (128, 256, 16, 16, 256, 3, 1, 1, 6),
     "3x3_dil2_512": (128, 512, 16, 16, 512, 3, 1, 2, 3),
 }
+# and its 1x1 convs (stride 1 everywhere on this path): conv1 with the
+# junction into conv2 in its epilogue (requant), conv3 and proj with the
+# dequant to bf16; name -> (B, C, H, W, N, 1, 1, 1, launches a forward,
+# epilogue). 36 launches a forward.
+QK1_PATH_1X1 = {
+    "1x1_64_64_at64": (128, 64, 64, 64, 64, 1, 1, 1, 1, "requant"),
+    "1x1_256_64_at64": (128, 256, 64, 64, 64, 1, 1, 1, 2, "requant"),
+    "1x1_64_256_at64": (128, 64, 64, 64, 256, 1, 1, 1, 3, "dequant"),
+    "1x1_64_256_at32": (128, 64, 32, 32, 256, 1, 1, 1, 1, "dequant"),
+    "1x1_256_128_at32": (128, 256, 32, 32, 128, 1, 1, 1, 1, "requant"),
+    "1x1_512_128_at32": (128, 512, 32, 32, 128, 1, 1, 1, 3, "requant"),
+    "1x1_256_512_at32": (128, 256, 32, 32, 512, 1, 1, 1, 1, "dequant"),
+    "1x1_128_512_at32": (128, 128, 32, 32, 512, 1, 1, 1, 3, "dequant"),
+    "1x1_128_512_at16": (128, 128, 16, 16, 512, 1, 1, 1, 1, "dequant"),
+    "1x1_512_256_at16": (128, 512, 16, 16, 256, 1, 1, 1, 1, "requant"),
+    "1x1_1024_256_at16": (128, 1024, 16, 16, 256, 1, 1, 1, 5, "requant"),
+    "1x1_512_1024_at16": (128, 512, 16, 16, 1024, 1, 1, 1, 1, "dequant"),
+    "1x1_256_1024_at16": (128, 256, 16, 16, 1024, 1, 1, 1, 6, "dequant"),
+    "1x1_1024_512_at16": (128, 1024, 16, 16, 512, 1, 1, 1, 1, "requant"),
+    "1x1_2048_512_at16": (128, 2048, 16, 16, 512, 1, 1, 1, 2, "requant"),
+    "1x1_1024_2048_at16": (128, 1024, 16, 16, 2048, 1, 1, 1, 1, "dequant"),
+    "1x1_512_2048_at16": (128, 512, 16, 16, 2048, 1, 1, 1, 3, "dequant"),
+}
 # and its other shapes: the 7x7/2 stem under quantize_extras "stem" (C = 3,
 # the scalar variant), odd sizes, a C with no 16-byte runs, torch pads with
 # an N that ends inside a tile
@@ -1254,17 +1285,33 @@ def unfold_int8(x, k, stride, dil, pads):
     return torch.stack(views, 3).reshape(b * oh * ow, k * k * c)
 
 
-def check_int8_conv(int8, x, wq, stride, dil, pads, epilogue, where, **kw):
-    """QK1 in each variant the tensors allow against its twin, bit for bit."""
+# every epilogue and output type of QK1: name -> (epilogue, arguments from
+# the inputs' requant scale m and offset off)
+QK1_FORMS = {
+    "acc": ("acc", lambda m, off: {}),
+    "requant": ("requant", lambda m, off: dict(scale=m, bias=off)),
+    "requant_norelu": ("requant", lambda m, off: dict(scale=m, bias=off, relu=False)),
+    "dequant_bf16": ("dequant", lambda m, off: dict(scale=m, bias=off, out_dtype=torch.bfloat16)),
+    "dequant_bf16_nobias": ("dequant", lambda m, off: dict(scale=m, bias=None,
+                                                           out_dtype=torch.bfloat16)),
+    "dequant_f32": ("dequant", lambda m, off: dict(scale=m, bias=None, out_dtype=torch.float32)),
+}
+
+
+def check_int8_conv(int8, x, wq, stride, dil, pads, epilogue, where, scalar=True, **kw):
+    """QK1 in the variant its plan picks, and with `scalar` in the scalar
+    variant too, against its twin, bit for bit. -> the plan's variant."""
     want = int8.int8_conv_plain(x, wq, stride, dil, pads, epilogue, **kw)
-    widths = sorted({1, int8.vector_width(x.shape[1], x.data_ptr(), wq.data_ptr())})
-    for width in widths:
-        got = int8.int8_conv_cuda(x, wq, stride, dil, pads, epilogue, width=width, **kw)
+    b, c, h, w = x.shape
+    n, kh, kw_, _ = wq.shape
+    variant = int8.qk1_plan(b, c, h, w, n, kh, kw_, stride, dil, pads)["variant"]
+    for v in sorted({variant, "scalar"} if scalar else {variant}):
+        got = int8.int8_conv_cuda(x, wq, stride, dil, pads, epilogue, variant=v, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            fail(f"QK1 {where} {epilogue} width {width} differs from its twin: max abs err "
-                 f"{max_abs_err(got.float(), want.float())}")
-    return widths
+            fail(f"QK1 {where} {epilogue} {kw.get('out_dtype')} variant {v} differs from its "
+                 f"twin: max abs err {max_abs_err(got.float(), want.float())}")
+    return variant
 
 
 def phase_int8(rng, gen, dev, card, rates):
@@ -1285,28 +1332,29 @@ def phase_int8(rng, gen, dev, card, rates):
     from metro_pose3d_tpu_torch.ops.color import normalize
     from metro_pose3d_tpu_torch.probes import time_ms
 
-    # QK1: every epilogue at a path shape, requant (the path's) at all of
-    # them, and the edge shapes
+    # QK1: every epilogue and output type at every path shape (3x3 and 1x1)
+    # and edge shape, in the plan's variant; the scalar variant too at the
+    # edge shapes and the 3x3 path shapes' requant
     inputs = {name: int8_conv_inputs(gen, dev, *shape[:8])
-              for name, shape in QK1_PATH.items()}
+              for name, shape in {**QK1_PATH, **QK1_PATH_1X1}.items()}
+    variants = {}
     for name, (x, wq, pads, m, off) in inputs.items():
-        _, _, _, _, _, _, st, dil, _ = QK1_PATH[name]
-        forms = [("requant", dict(scale=m, bias=off))]
-        if name == "3x3_s1_64":
-            forms += [("requant", dict(scale=m, bias=off, relu=False)), ("acc", {}),
-                      ("dequant", dict(scale=m, bias=off, out_dtype=torch.bfloat16)),
-                      ("dequant", dict(scale=m, bias=None, out_dtype=torch.float32))]
-        for epi, kw in forms:
-            check_int8_conv(int8, x, wq, st, dil, pads, epi, name, **kw)
+        st, dil = {**QK1_PATH, **QK1_PATH_1X1}[name][6:8]
+        for form, (epi, kw) in QK1_FORMS.items():
+            variants[name] = check_int8_conv(int8, x, wq, st, dil, pads, epi, name,
+                                             scalar=name in QK1_PATH and form == "requant",
+                                             **kw(m, off))
+    if set(variants.values()) != {"wgmma"}:
+        fail(f"a path shape did not take QK1's wgmma variant: {variants}")
     for name, (b, c, h, w, n, k, st, dil, padding) in QK1_EDGE.items():
         x, wq, pads, m, off = int8_conv_inputs(gen, dev, b, c, h, w, n, k, st, dil, padding)
-        for epi, kw in (("acc", {}), ("requant", dict(scale=m, bias=off)),
-                        ("dequant", dict(scale=m, bias=off, out_dtype=torch.bfloat16))):
-            check_int8_conv(int8, x, wq, st, dil, pads, epi, name, **kw)
+        for form, (epi, kw) in QK1_FORMS.items():
+            variants[name] = check_int8_conv(int8, x, wq, st, dil, pads, epi, name, **kw(m, off))
         del x, wq
-    print(f"[17 int8] QK1 == its twin bit for bit: requant at the path's {len(QK1_PATH)} "
-          f"shapes (B=128), every epilogue at 3x3_s1_64, and acc/requant/dequant on "
-          f"{', '.join(QK1_EDGE)} (the scalar variant where C % 16 != 0)")
+    print(f"[17 int8] QK1 == its twin bit for bit under {', '.join(QK1_FORMS)}: the path's "
+          f"{len(QK1_PATH)} 3x3 and {len(QK1_PATH_1X1)} 1x1 shapes (B=128) in the wgmma variant, "
+          f"the 3x3 ones' requant in the scalar variant too; "
+          + ", ".join(f"{e} ({variants[e]} and scalar)" for e in QK1_EDGE))
 
     # QK2: every form at the path's stage-1 shapes and at small odd ones
     cases = []
@@ -1367,14 +1415,25 @@ def phase_int8(rng, gen, dev, card, rates):
     crop_reqs = [(rng.randint(0, 256, (BATCH, side, side, 3)).astype(np.uint8),
                   crop_params(rng, BATCH, TILE, side, "normal")[3]) for _ in range(3)]
     tile_reqs = [tile_batch(rng, BATCH, TILE, side) for _ in range(3)]
+    int_mm, int_mm_calls = torch._int_mm, []
+
+    def counting_int_mm(*args):
+        int_mm_calls.append(tuple(args[0].shape))
+        return int_mm(*args)
+
     int8.reset_launches()
     pool.reset_launches()
     warp.reset_launches()
-    outs = [est.predict_crops(c, i) for c, i in crop_reqs]
-    outs += [est.predict_tiles(b) for b in tile_reqs]
-    torch.cuda.synchronize()
+    torch._int_mm = counting_int_mm
+    try:
+        outs = [est.predict_crops(c, i) for c, i in crop_reqs]
+        outs += [est.predict_tiles(b) for b in tile_reqs]
+        torch.cuda.synchronize()
+    finally:
+        torch._int_mm = int_mm
     path = {"qk1": int8.launches("int8_conv"), "qk2": int8.launches("int8_elementwise"),
-            "pool": pool.MODE_LAUNCHES["same"], "warp": warp.LAUNCHES}
+            "pool": pool.MODE_LAUNCHES["same"], "warp": warp.LAUNCHES,
+            "int_mm": len(int_mm_calls)}
     path_warp_forms = dict(warp.KERNEL_LAUNCHES)
     by_kind = {f"{k[0][5:]}:{k[1]}:{k[2]}": n for k, n in int8.KERNEL_LAUNCHES.items() if n}
     for out in outs:
@@ -1382,15 +1441,26 @@ def phase_int8(rng, gen, dev, card, rates):
                            ("pose3d_abs", (BATCH, 17, 3))):
             if tuple(out[key].shape) != shape or not bool(torch.isfinite(out[key]).all()):
                 fail(f"int8 serving output {key}: shape {tuple(out[key].shape)} or not finite")
-    if min(path.values()) == 0 or int8.launches("int8_conv", "requant", "vec16") == 0:
-        fail(f"int8 serving did not launch every kernel: {path}, {by_kind}")
-    for form in int8.FORMS:
-        if int8.launches("int8_elementwise", form) == 0:
-            fail(f"int8 serving launched no QK2 {form}: {by_kind}")
+    # route B, per backbone forward (one a request: TTA runs one doubled
+    # batch): QK1 52 times in its wgmma variant (16 3x3 and 36 1x1 convs,
+    # 32 requant into the next conv, 20 dequant), QK2 20 times to quantize,
+    # and no `torch._int_mm`
+    n_fwd = len(crop_reqs) + len(tile_reqs)
+    got = {"qk1": path["qk1"], "qk1 wgmma": int8.launches("int8_conv", var="wgmma"),
+           "qk1 requant": int8.launches("int8_conv", "requant"),
+           "qk1 dequant": int8.launches("int8_conv", "dequant"), "qk2": path["qk2"],
+           "qk2 quantize": int8.launches("int8_elementwise", "quantize")}
+    want = {key: n * n_fwd for key, n in zip(got, (52, 52, 32, 20, 20, 20))}
+    if got != want or path["int_mm"]:
+        fail(f"int8 serving's launches are not route B's ({n_fwd} forwards): {got}, "
+             f"_int_mm {path['int_mm']}, by kind {by_kind}")
+    if min(path["pool"], path["warp"]) == 0:
+        fail(f"int8 serving did not launch K3 and K1: {path}")
     check_pool_variants("int8 serving")
     check_warp_forms_launched("int8 serving", ("normalize", torch.bfloat16))
     print(f"[17 int8] serve: 3 crop-in + 3 tile-in requests of {BATCH} (R50@256 bf16 int8, TTA, "
-          f"full reconstruction): outputs finite, launches {path}, by kind {by_kind}")
+          f"full reconstruction): outputs finite, launches {path}, by kind {by_kind} (route B: "
+          f"52 QK1 wgmma and 20 QK2 quantize a forward, no _int_mm)")
 
     # the calibrated model in float32 on the card and on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1415,55 +1485,87 @@ def phase_int8(rng, gen, dev, card, rates):
           f"{logit_err[0]:.3e}, 2D {logit_err[1]:.3e} (bound {lim:.3e} = {rel} max|l3| + {off})")
     del cpu32, gpu32
 
-    # times (informative; the card's name and power limit beside each)
-    per_shape, totals = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
-                             "ops_ms": 0.0}
+    # times (informative; the card's name and power limit beside each): each
+    # path shape in the epilogue the path gives it (3x3 requant; 1x1 as
+    # QK1_PATH_1X1 says, dequant to bf16 without bias), beside its bound
+    # (fused bytes, or int8 operations), `_int_mm` on the same integer sums
+    # and, for a 1x1 conv, `_int_mm` + the QK2 form that route B replaced
+    per_shape = {}
+    keys = ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "replaced_ms")
+    parts = {part: dict.fromkeys(keys, 0.0) for part in ("3x3", "1x1")}
     for name, (x, wq, pads, m, off) in inputs.items():
-        b, c, h, w, n, k, st, dil, count = QK1_PATH[name]
-        call = lambda: int8.int8_conv_cuda(x, wq, st, dil, pads, "requant", m, off)  # noqa: E731
+        part = "3x3" if name in QK1_PATH else "1x1"
+        b, c, h, w, n, k, st, dil, count = {**QK1_PATH, **QK1_PATH_1X1}[name][:9]
+        epi = QK1_PATH_1X1[name][9] if part == "1x1" else "requant"
+        kw = (dict(scale=m, bias=off) if epi == "requant"
+              else dict(scale=m, bias=None, out_dtype=torch.bfloat16))
+        call = lambda: int8.int8_conv_cuda(x, wq, st, dil, pads, epi, **kw)  # noqa: E731
         out = call()
         a_unf = unfold_int8(x, k, st, dil, pads)
         w2 = wq.reshape(n, -1)
         lib = lambda: torch._int_mm(a_unf, w2.t())  # noqa: E731
-        if not torch.equal(lib(), int8.int8_conv_cuda(x, wq, st, dil, pads).permute(
+        acc = lib()
+        if not torch.equal(acc, int8.int8_conv_cuda(x, wq, st, dil, pads).permute(
                 0, 2, 3, 1).reshape(-1, n)):
-            fail(f"QK1 {name}: the unfolded _int_mm differs from the kernel's accumulator")
+            fail(f"QK1 {name}: _int_mm on the unfolded input differs from the kernel's sums")
         macs = a_unf.shape[0] * n * a_unf.shape[1]
-        t_bytes = nbytes(x, wq, out, m, off) / HBM_BYTES_PER_S * 1e3
+        vecs = [v for v in (kw["scale"], kw["bias"]) if v is not None]
+        t_bytes = nbytes(x, wq, out, *vecs) / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * macs / rates["int8"] * 1e3
-        r = {"ms": device_ms(call, "int8_conv_kernel"),
-             "plain_ms": time_ms(lambda: int8.int8_conv_plain(x, wq, st, dil, pads, "requant",
-                                                               m, off), iters=5),
+        r = {"ms": device_ms(call, "int8_conv_wgmma_kernel"), "call_ms": time_ms(call),
+             "plain_ms": time_ms(lambda: int8.int8_conv_plain(x, wq, st, dil, pads, epi, **kw),
+                                 iters=5),
              "library_ms": device_ms(lib, launched_kernels(lib)),
              "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
-             else "operations", "count": count, "gmacs": macs / 1e9}
+             else "operations", "count": count, "epilogue": epi, "gmacs": macs / 1e9}
         r["bound_share"] = r["bound_ms"] / r["ms"]
+        extra = ""
+        if part == "1x1":  # what route B replaced: the int32 sums' round trip through QK2
+            acc4 = acc.view(b, out.shape[2], out.shape[3], n).permute(0, 3, 1, 2)
+            form = "junction" if epi == "requant" else "dequant"
+            qk2 = lambda: int8.int8_elementwise_cuda(form, acc4, m, kw["bias"],  # noqa: E731
+                                                      out_dtype=kw.get("out_dtype"))
+            r["qk2_ms"] = device_ms(qk2, "int8_elementwise_kernel")
+            r["replaced_ms"] = r["library_ms"] + r["qk2_ms"]
+            r["unfused_bytes_ms"] = t_bytes + 2 * nbytes(acc) / HBM_BYTES_PER_S * 1e3
+            extra = (f", replaced _int_mm + QK2 {form} {r['replaced_ms']:.4f} ms (unfused bytes "
+                     f"bound {r['unfused_bytes_ms']:.4f})")
+            parts[part]["replaced_ms"] += count * r["replaced_ms"]
         if name == "3x3_s1_64":  # the int32 `acc` epilogue too: four times the bytes out
             r["acc_ms"] = device_ms(lambda: int8.int8_conv_cuda(x, wq, st, dil, pads),
-                                    "int8_conv_kernel")
+                                    "int8_conv_wgmma_kernel")
+            extra = f", acc epilogue {r['acc_ms']:.4f} ms"
         per_shape[name] = r
         for key in ("ms", "plain_ms", "library_ms"):
-            totals[key] += count * r[key]
-        totals["bytes_ms"] += count * t_bytes
-        totals["ops_ms"] += count * t_ops
-        print(f"[17 int8] QK1 {name} B={b} {c}->{n} {h}x{w}: {r['ms']:.4f} ms device time "
-              f"({r['gmacs']:.1f} G MACs, {2 * macs / r['ms'] / 1e9:.0f} TOP/s), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_share']:.0%}), _int_mm on "
-              f"the unfolded [{a_unf.shape[0]}, {a_unf.shape[1]}] {r['library_ms']:.4f} ms, "
-              f"twin {r['plain_ms']:.3f} ms"
-              + (f", acc epilogue {r['acc_ms']:.4f} ms" if "acc_ms" in r else "") + f"  [{card}]")
-        del a_unf
+            parts[part][key] += count * r[key]
+        parts[part]["bytes_ms"] += count * t_bytes
+        parts[part]["ops_ms"] += count * t_ops
+        print(f"[17 int8] QK1 {name} B={b} {c}->{n} {h}x{w} {epi} x{count}: {r['ms']:.4f} ms "
+              f"device time, {r['call_ms']:.4f} ms a call by CUDA events "
+              f"({r['gmacs']:.1f} G MACs, {2 * macs / r['ms'] / 1e9:.0f} TOP/s), "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_share']:.0%}), _int_mm "
+              f"on the same sums [{a_unf.shape[0]}, {a_unf.shape[1]}] {r['library_ms']:.4f} ms, "
+              f"twin {r['plain_ms']:.3f} ms{extra}  [{card}]")
+        del a_unf, acc, out
     stem = QK1_EDGE["7x7_s2_stem_c3"]
     x, wq, pads, m, off = int8_conv_inputs(gen, dev, *stem[:8])
     stem_ms = device_ms(lambda: int8.int8_conv_cuda(x, wq, 2, 1, pads, "dequant", m, None,
-                                                    out_dtype=torch.bfloat16), "int8_conv_kernel")
+                                                    out_dtype=torch.bfloat16),
+                        "int8_conv_scalar_kernel")
     del x, wq
+    totals = {key: parts["3x3"][key] + parts["1x1"][key] for key in keys}
     qk1_bound = (max(totals["bytes_ms"], totals["ops_ms"]),
                  "bytes" if totals["bytes_ms"] >= totals["ops_ms"] else "operations")
-    print(f"[17 int8] QK1 a backbone forward (16 convs, B=128): {totals['ms']:.4f} ms, bound "
-          f"{qk1_bound[0]:.4f} ms ({qk1_bound[1]}; bytes {totals['bytes_ms']:.4f}, operations "
-          f"{totals['ops_ms']:.4f}), _int_mm on the unfolded matrices {totals['library_ms']:.4f} "
-          f"ms; the scalar 7x7/2 stem (extras only) {stem_ms:.4f} ms  [{card}]")
+    for part, t in parts.items():
+        print(f"[17 int8] QK1 the {part} convs of a backbone forward (B=128): {t['ms']:.4f} ms, "
+              f"bytes bound {t['bytes_ms']:.4f} ms, operations bound {t['ops_ms']:.4f} ms, "
+              f"_int_mm on the same sums {t['library_ms']:.4f} ms"
+              + (f", _int_mm + QK2 replaced {t['replaced_ms']:.4f} ms" if part == "1x1" else "")
+              + f"  [{card}]")
+    print(f"[17 int8] QK1 a backbone forward (52 convs, B=128): {totals['ms']:.4f} ms, bound "
+          f"{qk1_bound[0]:.4f} ms ({qk1_bound[1]}; {qk1_bound[0] / totals['ms']:.0%}), _int_mm "
+          f"on the same sums {totals['library_ms']:.4f} ms; the scalar 7x7/2 stem (extras "
+          f"only) {stem_ms:.4f} ms  [{card}]")
 
     per_form, qk2_tot = {}, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for form, (args, kw, want) in qk2_inputs.items():
@@ -1518,14 +1620,15 @@ def phase_int8(rng, gen, dev, card, rates):
 
     records = [
         {"name": "int8_conv", "route": "cuda", "source": "metro_pose3d_tpu_torch/csrc/int8_conv.cu",
-         "replaces": "metro_pose3d_tpu/models/quantize.py:191 (XLA's int8 conv, not a TPU "
-                     "kernel)",
+         "replaces": "metro_pose3d_tpu/models/quantize.py:185-195 (XLA's int8 conv and 1x1 "
+                     "dot, not a TPU kernel)",
          "launches": path["qk1"], "max_abs_err": 0.0, "ms": totals["ms"],
          "plain_ms": totals["plain_ms"], "bound_ms": qk1_bound[0], "bound_by": qk1_bound[1],
          "library_ms": totals["library_ms"], "bound_share": qk1_bound[0] / totals["ms"],
-         "timed": "the 16 3x3 convs of one backbone forward at B=128, requant epilogue; "
-                  "library_ms: torch._int_mm on the unfolded matrices",
-         "stem_scalar_ms": stem_ms, "per_shape": per_shape},
+         "timed": "the 52 convs of one backbone forward at B=128 (16 3x3 requant, 36 1x1 in "
+                  "the path's epilogues), wgmma variant; library_ms: torch._int_mm on the "
+                  "same integer sums (the unfolded input for a 3x3)",
+         "parts": parts, "stem_scalar_ms": stem_ms, "per_shape": per_shape},
         {"name": "int8_elementwise", "route": "cuda",
          "source": "metro_pose3d_tpu_torch/csrc/int8_quant.cu",
          "replaces": "metro_pose3d_tpu/models/quantize.py:165-202 (elementwise passes XLA fuses "
@@ -1573,15 +1676,16 @@ def main() -> int:
     usage, hgmma = kernel_resources(cuobjdump, build.build(),
                                     ("warp_crop", "rowsel", "roll_kernel", "lane_loop_kernel",
                                      "probe_gather_rows_kernel", "probe_gather_cols_kernel",
-                                     "probe_dynslice_kernel"))
+                                     "probe_dynslice_kernel", "int8_conv_wgmma_kernel"))
     if not hgmma.get("rowsel"):
         fail(f"no HGMMA instruction in the row select's SASS: {hgmma}")
     print(f"[2 build] cuobjdump: warp_crop instances {usage.get('warp_crop')}, rowsel "
           f"{usage.get('rowsel')}, roll {usage.get('roll_kernel')}, lane loop "
           f"{usage.get('lane_loop_kernel')}, gather rows {usage.get('probe_gather_rows_kernel')}, "
           f"gather columns {usage.get('probe_gather_cols_kernel')}, row slice "
-          f"{usage.get('probe_dynslice_kernel')}; HGMMA instructions in the rowsel SASS: "
-          f"{hgmma['rowsel']}")
+          f"{usage.get('probe_dynslice_kernel')}, QK1 wgmma (BN 256, 128, 64) "
+          f"{usage.get('int8_conv_wgmma_kernel')}; HGMMA instructions in the rowsel SASS: "
+          f"{hgmma['rowsel']}, IGMMA in QK1's: {hgmma.get('int8_conv_wgmma_kernel', 0)}")
     rates = card_rates()
     print(f"[2 build] rates for the looped probes' bounds: {rates['sms']} SMs at "
           f"{rates['mhz']:.0f} MHz: int32 adds {rates['int32'] / 1e12:.2f} T/s, shared memory "

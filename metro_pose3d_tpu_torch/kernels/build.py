@@ -60,8 +60,8 @@ SIGNATURES = {
     "metro_probe_dynslice": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     # the int8 serving path (csrc/int8_conv.cu, csrc/int8_quant.cu):
     # x, w, out, scale, bias, B, H, W, C, OH, OW, N, KH, KW, stride, dil, pad_top,
-    # pad_left, epilogue, out_dtype, relu, vec, stream
-    "metro_int8_conv": [_VP] * 5 + [_I] * 17 + [_VP],
+    # pad_left, epilogue, out_dtype, relu, variant, bn, bk, stages, tile_w, stream
+    "metro_int8_conv": [_VP] * 5 + [_I] * 21 + [_VP],
     # x, scale, bias, out, form, in_dtype, out_dtype, relu, vec, n, C, stream
     "metro_int8_elementwise": [_VP] * 4 + [_I] * 5 + [_LL, _I, _VP],
 }

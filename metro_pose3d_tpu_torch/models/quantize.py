@@ -16,7 +16,7 @@ order (`ops/int8.py` holds the kernels and their twins):
   xq  = clip(round(x.f32 / sa), -127, 127)               true division, half to even
   sw  = max|W| over (kh, kw, cin) / 127,  swc = max(sw, 1e-12)
   wq  = clip(round(W / swc), -127, 127)
-  junction (the fused bottleneck, `out_mode="acc"` into `pre_affine`):
+  junction (the fused bottleneck, in the epilogue of the conv before it):
         m = (a * scale_in) / sa,  y = acc.f32 * m + c / sa,  ReLU, round, clip
   dequant: (acc.f32 * (sa * swc)).to(dtype) + bias.to(dtype)
 
@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from metro_pose3d_tpu_torch.models.resnet import BatchNorm, Conv
-from metro_pose3d_tpu_torch.ops.int8 import int8_conv, int8_elementwise, int8_pointwise
+from metro_pose3d_tpu_torch.ops.int8 import int8_conv, int8_elementwise
 
 
 class BNAffine(BatchNorm):
@@ -61,11 +61,12 @@ class QuantConv(Conv):
     calibrating conv records from its input and then convolves as `Conv`.
     `calibrate` sets the mode of every conv of a model for its pass.
 
-    int8 `forward(x)` quantizes x (QK2), convolves (QK1 for k x k, `_int_mm`
-    for 1 x 1) and dequantizes. With `out_mode="acc"` it returns the int32
-    accumulator and its per-channel scale sa * swc instead, which the fused
-    bottleneck hands to the next conv's junction (`quantize_input` with
-    `pre_affine`, `forward_requant`).
+    int8 `forward(x)` quantizes x (QK2), then convolves and dequantizes in
+    one QK1 launch, 1 x 1 convs included. With `out_mode="acc"` it returns
+    the int32 accumulator and its per-channel scale sa * swc instead, for a
+    junction (`quantize_input` with `pre_affine`). The fused bottleneck
+    keeps its int32 sums out of device memory: `requant_out` runs the
+    junction into the next conv in QK1's epilogue.
     """
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
@@ -99,17 +100,12 @@ class QuantConv(Conv):
         return int8_elementwise("junction", acc, (a * scale_in) / sa, c / sa, relu=pre_relu)
 
     def conv_acc(self, xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-        """int8 input -> int32 accumulator [B, Cout, OH, OW] channels_last."""
-        if self.k == 1:
-            return int8_pointwise(xq, wq[:, 0, 0, :], self.stride)
+        """int8 input -> int32 accumulator [B, Cout, OH, OW] channels_last (QK1)."""
         return int8_conv(xq, wq, self.stride, self.dilation, self.pads(*xq.shape[2:]))
 
     def dequant_out(self, xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor):
         """int8 input -> this conv's output in the compute dtype: QK1 with its
-        dequant epilogue for k x k, `_int_mm` and QK2 dequant for 1 x 1."""
-        if self.k == 1:
-            return int8_elementwise("dequant", self.conv_acc(xq, wq), scale, self.bias,
-                                    out_dtype=self.dtype)
+        dequant epilogue."""
         return int8_conv(xq, wq, self.stride, self.dilation, self.pads(*xq.shape[2:]),
                          "dequant", scale, self.bias, out_dtype=self.dtype)
 
@@ -126,13 +122,13 @@ class QuantConv(Conv):
             return self.conv_acc(xq, wq), scale
         return self.dequant_out(xq, wq, scale)
 
-    def forward_requant(self, x, pre_affine, affine, next_conv: "QuantConv") -> torch.Tensor:
-        """The middle conv of the fused bottleneck: the junction in (QK2),
-        then this k x k conv with the next junction in its epilogue (QK1
-        requant), into `next_conv`'s int8 input:
-        m = (a * (sa * swc)) / sa_next, b = c / sa_next; both junctions
-        apply the ReLU that follows the unit's batch norms."""
-        xq = self.quantize_input(x, pre_affine)
+    def requant_out(self, xq: torch.Tensor, affine, next_conv: "QuantConv") -> torch.Tensor:
+        """A conv of the fused bottleneck, int8 in, with the junction into
+        `next_conv` in its epilogue (QK1 requant): batch norm's affine (a, c)
+        and the ReLU after it, quantized by next_conv's input scale,
+        m = (a * (sa * swc)) / sa_next, b = c / sa_next (the JAX junction's
+        arithmetic in its order, scale_in = sa * swc first). -> next_conv's
+        int8 input."""
         wq, swc = self.int8_weights()
         a, c = affine
         sa_next = next_conv.input_scale()

@@ -223,11 +223,12 @@ class Bottleneck(nn.Module):
             h = F.relu(self.bn_pre(x))
             shortcut = self.proj(h) if self.change else _shortcut(x, self.strides)
             if self.fused and self.conv1.mode == "int8":  # not while calibrating
-                # conv1's int32 sums -> junction 1 (QK2) -> conv2 with
-                # junction 2 in its epilogue (QK1 requant) -> conv3 dequant
-                acc1 = self.conv1(h, out_mode="acc")
-                h = self.conv2.forward_requant(acc1, self.bn1.affine(), self.bn2.affine(),
-                                               self.conv3)
+                # quantize (QK2) -> conv1 with junction 1 in its epilogue ->
+                # conv2 with junction 2 in its epilogue -> conv3 dequant, all
+                # QK1: no int32 sum reaches device memory
+                h = self.conv1.requant_out(self.conv1.quantize_input(h), self.bn1.affine(),
+                                           self.conv2)
+                h = self.conv2.requant_out(h, self.bn2.affine(), self.conv3)
                 return shortcut + self.conv3.forward_int8(h)
             h = F.relu(self.bn1(self.conv1(h)))
             h = F.relu(self.bn2(self.conv2(h)))

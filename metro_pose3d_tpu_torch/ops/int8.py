@@ -1,10 +1,10 @@
-"""int8 kernels of the quantized serving path, their plain twins, and the
-pointwise convolution (`metro_pose3d_tpu/models/quantize.py` computes the
-same integer sums with XLA's int8 convolution and dot).
+"""int8 kernels of the quantized serving path and their plain twins
+(`metro_pose3d_tpu/models/quantize.py` computes the same integer sums with
+XLA's int8 convolution and dot).
 
-  QK1 `int8_conv`        k x k convolution, int8 x int8 -> exact int32, as an
-                         implicit GEMM (csrc/int8_conv.cu), with one of three
-                         epilogues:
+  QK1 `int8_conv`        k x k convolution, 1 x 1 included, int8 x int8 ->
+                         exact int32, as an implicit GEMM (csrc/int8_conv.cu),
+                         with one of three epilogues:
                            acc      int32 out;
                            requant  int8 out, clip(round(relu?(acc * m[c] + b[c])));
                            dequant  (acc * s[c]).to(dtype) + bias[c].to(dtype).
@@ -13,9 +13,6 @@ same integer sums with XLA's int8 convolution and dot).
                            quantize  float -> int8, clip(round(x / sa));
                            junction  int32 -> int8, the requant epilogue;
                            dequant   int32 -> dtype, the dequant epilogue.
-  `int8_pointwise`       1 x 1 convolution, int8 x int8 -> int32, through
-                         `torch._int_mm` on either device (a strided one reads
-                         every stride-th pixel).
 
 Every float step is float32 in the JAX package's order: a product, then a
 sum (the kernels build without FMA contraction), a true division, and
@@ -30,7 +27,10 @@ order, the order in which an input pixel's channels lie in memory.
 
 On a CPU tensor each wrapper runs its twin; on a CUDA tensor it launches
 its kernel or raises. The twins take any device: `chip_smoke.py` compares
-them with the kernels on the card.
+them with the kernels on the card. QK1 has two variants, which
+`qk1_plan` picks from the shapes alone: "wgmma" (Hopper's warpgroup
+products fed by TMA, Cin % 16 == 0 and 16-byte aligned tensors) and
+"scalar" (byte loads and `mma.sync`, any Cin: the 7x7 stem's 3 channels).
 """
 from __future__ import annotations
 
@@ -41,20 +41,22 @@ from metro_pose3d_tpu_torch.kernels import build
 
 EPILOGUES = ("acc", "requant", "dequant")
 FORMS = ("quantize", "junction", "dequant")
-VARIANTS = ("vec16", "scalar")  # 16-byte vectors, or one element at a time
+CONV_VARIANTS = ("wgmma", "scalar")  # QK1: `qk1_plan` picks one
+ELEMENTWISE_VARIANTS = ("vec16", "scalar")  # QK2: 16-byte vectors, or one element at a time
 # kernel launches on CUDA tensors by (kernel, epilogue or form, variant)
 KERNEL_LAUNCHES = {
-    **{("int8_conv", e, v): 0 for e in EPILOGUES for v in VARIANTS},
-    **{("int8_elementwise", f, v): 0 for f in FORMS for v in VARIANTS},
+    **{("int8_conv", e, v): 0 for e in EPILOGUES for v in CONV_VARIANTS},
+    **{("int8_elementwise", f, v): 0 for f in FORMS for v in ELEMENTWISE_VARIANTS},
 }
 
 _EPILOGUE_CODES = {"acc": 0, "requant": 1, "dequant": 2}
 _FORM_CODES = {"quantize": 0, "junction": 1, "dequant": 2}
+_CONV_VARIANT_CODES = {"scalar": 0, "wgmma": 1}
 # element types as the kernels number them
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2, torch.int8: 3}
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 # torch._int_mm on CUDA takes m > 16 rows and k, n multiples of 8; the
-# twins and the pointwise conv pad with zeros up to that, which is exact
+# twins pad with zeros up to that, which is exact
 _INT_MM_MIN_ROWS, _INT_MM_MULTIPLE = 17, 8
 
 
@@ -210,14 +212,49 @@ def int8_conv_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int, dilation: i
 # ------------------------------------------------------------ kernels
 
 
-def vector_width(c: int, *data_ptrs: int) -> int:
-    """Bytes a QK1 thread copies at once: 16 where Cin is a multiple of 16
-    and every pointer is 16-byte aligned, else 1 (the scalar variant)."""
-    return 16 if c % 16 == 0 and all(p % 16 == 0 for p in data_ptrs) else 1
+# QK1's wgmma variant (csrc/int8_conv.cu): a tile is 128 output pixels (a
+# rectangle of one image) x BN channels; each (tap, chunk of BK channels) of
+# it is one pipeline stage of (128 + BN) x BK bytes; a block also holds two
+# consumers' staging buffers and the stages' barriers in its shared memory
+QK1_TILE_M = 128
+QK1_MAX_STAGES = 8
+QK1_STAGING_BYTES = 2 * 64 * (64 * 4 + 16)
+QK1_BARRIER_BYTES = 2 * QK1_MAX_STAGES * 8
+QK1_SMEM_BYTES = 232448  # a block's shared memory on sm_90
+QK1_MAX_K = 133000  # |acc| <= 127^2 K < 2^31
 
 
-def _variant(vec: int) -> str:
-    return "scalar" if vec == 1 else "vec16"
+def qk1_plan(b: int, c: int, h: int, w: int, n: int, kh: int, kw: int, stride: int,
+             dilation: int, pads, aligned: bool = True) -> dict:
+    """QK1's variant and tiling for a conv of these shapes, from the shapes
+    alone. "wgmma" where Cin % 16 == 0, stride <= 2 and every tensor is
+    16-byte aligned (`aligned`), with:
+      bn      output channels a tile: 64 up to N = 64, 128 up to 128, else 256;
+      bk      channels a stage: 128 where Cin % 128 == 0, else 64 (the 128B
+              or 64B swizzle); a chunk past Cin loads zeros;
+      tile_w  output pixels a tile row: OW up to a power of two, at most 128
+              (tile_h = 128 / tile_w rows);
+      stages  the ring's depth: as many as shared memory holds, at most 8;
+      tiles   output tiles; the kernel runs min(tiles, SMs) persistent blocks.
+    "scalar" otherwise. Raises where no variant takes the conv."""
+    top, bottom, left, right = pads
+    oh = conv_out_size(h, kh, stride, dilation, top, bottom)
+    ow = conv_out_size(w, kw, stride, dilation, left, right)
+    k = kh * kw * c
+    if k == 0 or k > QK1_MAX_K or stride < 1 or dilation < 1 or oh < 1 or ow < 1:
+        raise ValueError(f"int8 conv: no QK1 variant takes K={k} (at most {QK1_MAX_K}), "
+                         f"stride {stride}, dilation {dilation}, output {oh}x{ow}")
+    if c % 16 or stride > 2 or not aligned:
+        return {"variant": "scalar"}
+    bn = 64 if n <= 64 else 128 if n <= 128 else 256
+    bk = 128 if c % 128 == 0 else 64
+    tile_w = min(QK1_TILE_M, 1 << (ow - 1).bit_length())
+    tile_h = QK1_TILE_M // tile_w
+    room = QK1_SMEM_BYTES - QK1_STAGING_BYTES - QK1_BARRIER_BYTES
+    stages = min(QK1_MAX_STAGES, room // ((QK1_TILE_M + bn) * bk))
+    tiles = b * -(-oh // tile_h) * -(-ow // tile_w) * -(-n // bn)
+    return {"variant": "wgmma", "bn": bn, "bk": bk, "tile_w": tile_w, "tile_h": tile_h,
+            "stages": stages, "tiles": tiles}
 
 
 def _check_cuda(name: str, *tensors) -> None:
@@ -231,10 +268,11 @@ def _check_cuda(name: str, *tensors) -> None:
 def int8_conv_cuda(xq: torch.Tensor, wq: torch.Tensor, stride: int, dilation: int, pads,
                    epilogue: str = "acc", scale: torch.Tensor | None = None,
                    bias: torch.Tensor | None = None, relu: bool = True,
-                   out_dtype: torch.dtype | None = None, width: int | None = None) -> torch.Tensor:
+                   out_dtype: torch.dtype | None = None,
+                   variant: str | None = None) -> torch.Tensor:
     """Launch QK1 (csrc/int8_conv.cu) on a channels_last int8 input and
-    contiguous OHWI int8 weights; `width` (1 or 16) overrides
-    `vector_width`'s choice where the tensors allow it."""
+    contiguous OHWI int8 weights, in the variant `qk1_plan` picks;
+    `variant="scalar"` forces the scalar one, which takes any conv."""
     _check_cuda("int8_conv_cuda", xq, wq, scale, bias)
     b, c, h, w, n, kh, kw, oh, ow = _conv_shapes(xq, wq, stride, dilation, pads)
     _check_epilogue(epilogue, n, scale, bias, out_dtype)
@@ -243,23 +281,27 @@ def int8_conv_cuda(xq: torch.Tensor, wq: torch.Tensor, stride: int, dilation: in
     dtype = {"acc": torch.int32, "requant": torch.int8, "dequant": out_dtype}[epilogue]
     out = torch.empty((b, n, oh, ow), dtype=dtype, device=xq.device,
                       memory_format=torch.channels_last)
-    allowed = vector_width(c, xq.data_ptr(), wq.data_ptr())
-    if width not in (None, 1, allowed):
-        raise ValueError(f"int8 conv width {width} does not fit Cin={c} at these pointers "
-                         f"(allowed: 1, {allowed})")
-    vec = allowed if width is None else width
+    aligned = all(p % 16 == 0 for p in (xq.data_ptr(), wq.data_ptr(), out.data_ptr()))
+    plan = qk1_plan(b, c, h, w, n, kh, kw, stride, dilation, pads, aligned)
+    if variant not in (None, "scalar", plan["variant"]):
+        raise ValueError(f"int8 conv variant {variant!r} does not take Cin={c}, stride "
+                         f"{stride} at these pointers (the plan: {plan['variant']!r})")
+    if variant == "scalar":
+        plan = {"variant": "scalar"}
     if out.numel():
         lib = build.load()
+        tiling = [plan.get(key, 0) for key in ("bn", "bk", "stages", "tile_w")]
         with torch.cuda.device(xq.device):
             err = lib.metro_int8_conv(
                 xq.data_ptr(), wq.data_ptr(), out.data_ptr(),
                 0 if scale is None else scale.contiguous().data_ptr(),
                 0 if bias is None else bias.contiguous().data_ptr(),
                 b, h, w, c, oh, ow, n, kh, kw, stride, dilation, pads[0], pads[2],
-                _EPILOGUE_CODES[epilogue], _DTYPE_CODES[dtype], int(relu), vec,
+                _EPILOGUE_CODES[epilogue], _DTYPE_CODES[dtype], int(relu),
+                _CONV_VARIANT_CODES[plan["variant"]], *tiling,
                 torch.cuda.current_stream().cuda_stream)
         build.check(err, "metro_int8_conv")
-    KERNEL_LAUNCHES["int8_conv", epilogue, _variant(vec)] += 1
+    KERNEL_LAUNCHES["int8_conv", epilogue, plan["variant"]] += 1
     return out
 
 
@@ -335,7 +377,7 @@ def int8_elementwise_cuda(form: str, x: torch.Tensor, scale: torch.Tensor,
                 _FORM_CODES[form], _DTYPE_CODES[x.dtype], _DTYPE_CODES[dtype], int(relu), vec,
                 x.numel(), c, torch.cuda.current_stream().cuda_stream)
         build.check(err, "metro_int8_elementwise")
-    KERNEL_LAUNCHES["int8_elementwise", form, _variant(vec)] += 1
+    KERNEL_LAUNCHES["int8_elementwise", form, "scalar" if vec == 1 else "vec16"] += 1
     return out
 
 
@@ -353,17 +395,3 @@ def int8_elementwise(form: str, x: torch.Tensor, scale: torch.Tensor,
     if x.is_cuda:
         return int8_elementwise_cuda(*args)
     raise ValueError(f"int8_elementwise: unsupported device {x.device}")
-
-
-def int8_pointwise(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """1 x 1 int8 convolution -> int32 [B,N,OH,OW] channels_last: x [B,C,H,W]
-    int8, weights [N, C] int8; with `stride` it reads every stride-th pixel
-    (a 1 x 1 conv pads nothing in any of the padding conventions)."""
-    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or wq.dim() != 2:
-        raise TypeError("int8_pointwise takes int8 x [B,C,H,W] and int8 weights [N, C]")
-    if stride != 1:
-        xq = xq[:, :, ::stride, ::stride]
-    b, c, h, w = xq.shape
-    a = xq.permute(0, 2, 3, 1).reshape(-1, c)  # a copy only for a strided or NCHW input
-    acc = int_products(a, wq.t())
-    return acc.reshape(b, h, w, -1).permute(0, 3, 1, 2)

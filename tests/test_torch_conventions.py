@@ -28,7 +28,8 @@ ALLOWED = {
         "plain twin of the tensor-core row select, on no path",
     ("ops/int8.py", "int_products"):
         "integer sums, exact at any TF32 setting: int8 x int8 -> int32 by "
-        "torch._int_mm, for the 1x1 int8 convs and QK1's plain twin",
+        "torch._int_mm, for QK1's plain twin only (the CPU path and the card's "
+        "checks); on the card every int8 conv, 1x1 included, runs QK1",
 }
 
 

@@ -574,8 +574,14 @@ def test_pool_picks_the_scalar_variant_for_unaligned_tensors(cuda):
 # QK1 shapes: (B, C, H, W, N, k, stride, dilation, padding): the 3x3 convs of
 # R50 v2 @ 256 at batch 8 (the path runs batch 128), with XLA SAME pads, then
 # odd sizes, the 7x7 stem with C = 3, a C that is no multiple of 16, torch
-# pads and an N that ends inside a tile
+# pads and an N that ends inside a tile; then 1x1 convs: three of the path's
+# at batch 8, a strided one and one with a ragged N
 INT8_CONV_SHAPES = {
+    "1x1_64_256": (8, 64, 64, 64, 256, 1, 1, 1, "same"),
+    "1x1_1024_256": (8, 1024, 16, 16, 256, 1, 1, 1, "same"),
+    "1x1_512_2048": (8, 512, 16, 16, 2048, 1, 1, 1, "same"),
+    "1x1_s2": (4, 256, 15, 16, 512, 1, 2, 1, "same"),
+    "1x1_n70": (3, 48, 9, 7, 70, 1, 1, 1, "same"),
     "s1_64": (8, 64, 64, 64, 64, 3, 1, 1, "same"),
     "s2_64": (8, 64, 64, 64, 64, 3, 2, 1, "same"),
     "s1_128": (8, 128, 32, 32, 128, 3, 1, 1, "same"),
@@ -618,16 +624,16 @@ def test_int8_conv_kernel_bit_exact(cuda, shape, epilogue):
           "dequant": dict(scale=scale, bias=None if rest.endswith("nobias") else bias,
                           out_dtype=torch.float32 if rest == "f32" else torch.bfloat16)}[epi]
     want = int8.int8_conv_plain(x, wq, s, d, pads, epi, **kw)
-    widths = {1, int8.vector_width(x.shape[1], x.data_ptr(), wq.data_ptr())}
-    if shape == "c24_unaligned":
-        assert widths == {1}
-    for width in sorted(widths):
-        before = int8.launches("int8_conv", epi, "scalar" if width == 1 else "vec16")
-        got = int8.int8_conv_cuda(x, wq, s, d, pads, epi, width=width, **kw)
+    b, c, h, w, n, k = x.shape + wq.shape[:2]
+    plan = int8.qk1_plan(b, c, h, w, n, k, k, s, d, pads)
+    assert plan["variant"] == ("scalar" if shape in ("stem_7x7_c3", "c24_unaligned") else "wgmma")
+    for variant in sorted({plan["variant"], "scalar"}):
+        before = int8.launches("int8_conv", epi, variant)
+        got = int8.int8_conv_cuda(x, wq, s, d, pads, epi, variant=variant, **kw)
         torch.cuda.synchronize()
-        assert int8.launches("int8_conv", epi, "scalar" if width == 1 else "vec16") == before + 1
+        assert int8.launches("int8_conv", epi, variant) == before + 1
         assert got.is_contiguous(memory_format=torch.channels_last)
-        assert torch.equal(got, want), (shape, epilogue, width)
+        assert torch.equal(got, want), (shape, epilogue, variant)
 
 
 @pytest.mark.parametrize("form", ["quantize_f32", "quantize_bf16", "junction", "junction_norelu",
@@ -686,6 +692,43 @@ def test_int_products_pad_to_what_int_mm_takes(cuda, m, k, n):
     got = int8.int_products(a, w.t())
     assert got.shape == (m, n) and got.is_contiguous()
     assert torch.equal(got.cpu(), torch._int_mm(a.cpu(), w.t().cpu()))
+
+
+def test_int8_serving_forward_takes_route_b(cuda):
+    """The int8 R50 v2 serving forward (at 64^2, B = 2, TTA) launches QK1
+    once per quantized conv, 52, all in the wgmma variant, 1x1 convs
+    included; QK2 only to quantize the 20 inputs that come from float
+    (conv1 and proj of each unit); and no `torch._int_mm`."""
+    from metro_pose3d_tpu_torch.models.quantize import QuantConv
+    from metro_pose3d_tpu_torch.ops import int8
+
+    cfg = apply_overrides(Config(), {"model.quantize": "int8", "model.proc_side": "64"})
+    model = init_metro_model(cfg.model, 3, cuda)
+    for m in model.modules():
+        if isinstance(m, QuantConv):
+            m.amax.fill_(4.0)
+    fn = make_predict_fn(cfg, np.arange(17), root_index=0, flip_tta=True, reconstruct=False)
+    crops = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8, device=cuda)
+    intr = torch.tensor([[90.0, 0, 31.5], [0, 90.0, 31.5], [0, 0, 1]], device=cuda).expand(2, 3, 3)
+    int_mm, calls = torch._int_mm, []
+
+    def counting_int_mm(*args):
+        calls.append(args[0].shape)
+        return int_mm(*args)
+
+    int8.reset_launches()
+    torch._int_mm = counting_int_mm
+    try:
+        out = fn(model, crops, intr.contiguous())
+        torch.cuda.synchronize()
+    finally:
+        torch._int_mm = int_mm
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    assert int8.launches("int8_conv") == int8.launches("int8_conv", var="wgmma") == 52
+    assert int8.launches("int8_conv", "requant") == 32  # conv1 and conv2 of 16 units
+    assert int8.launches("int8_conv", "dequant") == 20  # conv3 and proj
+    assert int8.launches("int8_elementwise") == int8.launches("int8_elementwise", "quantize") == 20
+    assert calls == []
 
 
 @pytest.mark.parametrize("over", [{}, {"quantize_fused": "false"},

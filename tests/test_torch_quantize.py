@@ -14,6 +14,8 @@ whole-model int8 logits and the poses of `make_predict_fn`.
 """
 import dataclasses
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 from jax import lax
+
+import chip_smoke
 
 from metro_pose3d_tpu.config import Config, apply_overrides
 from metro_pose3d_tpu.evaluation.engine import make_predict_fn as jax_make_predict_fn
@@ -157,10 +161,7 @@ def test_int32_accumulators_bit_exact(case):
         preferred_element_type=jnp.int32)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     wt = torch.from_numpy(w.transpose(3, 0, 1, 2).copy())  # OHWI
-    if k == 1:
-        got = int8.int8_pointwise(xt, wt[:, 0, 0, :], stride)
-    else:
-        got = int8.int8_conv(xt, wt, stride, dil, _port_pads(padding, side, k, stride, dil))
+    got = int8.int8_conv(xt, wt, stride, dil, _port_pads(padding, side, k, stride, dil))
     assert got.dtype == torch.int32
     assert got.is_contiguous(memory_format=torch.channels_last)
     np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), np.asarray(want))
@@ -181,6 +182,156 @@ def test_conv_epilogues_equal_the_elementwise_forms(epilogue):
     want = int8.int8_elementwise(form, acc, scale, bias, out_dtype=dt)
     got = int8.int8_conv(x, w, 1, 1, pads, epilogue, scale, bias, out_dtype=dt)
     assert torch.equal(got, want)
+
+
+# the 1x1 route: k = 1 through QK1's epilogues is the integer product
+# (`_int_mm`) of the strided input followed by the QK2 form, bit for bit
+ONE_BY_ONE_EPILOGUES = {
+    "acc": ("acc", {}),
+    "requant": ("requant", {"relu": True}),
+    "requant_norelu": ("requant", {"relu": False}),
+    "dequant_f32": ("dequant", {"out_dtype": torch.float32}),
+    "dequant_f32_bias": ("dequant", {"out_dtype": torch.float32, "bias": True}),
+    "dequant_bf16": ("dequant", {"out_dtype": torch.bfloat16}),
+    "dequant_bf16_bias": ("dequant", {"out_dtype": torch.bfloat16, "bias": True}),
+}
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("case", sorted(ONE_BY_ONE_EPILOGUES))
+def test_1x1_conv_equals_int_products_then_the_qk2_form(case, stride):
+    epilogue, kw = ONE_BY_ONE_EPILOGUES[case]
+    rng = np.random.RandomState(11 + stride)
+    x = torch.from_numpy(rng.randint(-127, 128, (2, 32, 9, 7)).astype(np.int8))
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.from_numpy(rng.randint(-127, 128, (24, 1, 1, 32)).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, 24).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 20, 24).astype(np.float32))
+    xs = x[:, :, ::stride, ::stride]
+    acc = int8.int_products(xs.permute(0, 2, 3, 1).reshape(-1, 32), w[:, 0, 0, :].t())
+    acc = acc.reshape(2, xs.shape[2], xs.shape[3], 24).permute(0, 3, 1, 2)
+    acc = acc.contiguous(memory_format=torch.channels_last)
+    use_bias = bias if epilogue == "requant" or kw.get("bias") else None
+    extra = {k: v for k, v in kw.items() if k != "bias"}
+    got = int8.int8_conv(x, w, stride, 1, (0, 0, 0, 0), epilogue,
+                         None if epilogue == "acc" else scale, use_bias, **extra)
+    if epilogue == "acc":
+        want = acc
+    else:
+        form = "junction" if epilogue == "requant" else "dequant"
+        want = int8.int8_elementwise(form, acc, scale, use_bias, **extra)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------ QK1's plan
+
+QK1_SOURCE = (Path(int8.__file__).resolve().parent.parent / "csrc" / "int8_conv.cu").read_text()
+
+
+def _cu_constant(name):
+    """A `constexpr int` of csrc/int8_conv.cu, evaluated from its source."""
+    expr = re.search(rf"constexpr int {name} = ([^;]+);", QK1_SOURCE).group(1)
+    names = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", QK1_SOURCE))
+    while re.search(r"\bk[A-Z]\w*", expr):
+        expr = re.sub(r"\bk[A-Z]\w*", lambda m: f"({names[m.group(0)]})", expr)
+    return eval(expr.split("//")[0])
+
+
+def test_qk1_plan_constants_are_the_kernels():
+    assert _cu_constant("kTileM") == int8.QK1_TILE_M
+    assert _cu_constant("kMaxStages") == int8.QK1_MAX_STAGES
+    assert _cu_constant("kStagingBytes") == int8.QK1_STAGING_BYTES
+    assert _cu_constant("kBarrierBytes") == int8.QK1_BARRIER_BYTES
+    assert _cu_constant("kSmemMax") == int8.QK1_SMEM_BYTES
+
+
+@pytest.mark.parametrize("name", sorted({**chip_smoke.QK1_PATH, **chip_smoke.QK1_PATH_1X1}))
+def test_qk1_plan_takes_every_path_shape_into_the_wgmma_variant(name):
+    """Each conv of the int8 path (chip_smoke's tables, B = 128) takes the
+    wgmma variant: a 128-pixel rectangle of whole output rows, BN that
+    divides N (64 for the 64-wide stage, 128, else 256), a stage of whole
+    128- or 64-channel chunks, and a ring that fits shared memory."""
+    b, c, h, w, n, k, stride, dil = {**chip_smoke.QK1_PATH, **chip_smoke.QK1_PATH_1X1}[name][:8]
+    pads = (*_port_pads("SAME", h, k, stride, dil),)
+    plan = int8.qk1_plan(b, c, h, w, n, k, k, stride, dil, pads)
+    assert plan["variant"] == "wgmma"
+    oh, ow = -(-h // stride), -(-w // stride)
+    assert plan["bn"] == min(n, 256) and n % plan["bn"] == 0
+    assert c % plan["bk"] == 0 and plan["bk"] == (128 if c % 128 == 0 else 64)
+    assert plan["tile_w"] == min(ow, 128) and plan["tile_w"] * plan["tile_h"] == 128
+    assert ow % plan["tile_w"] == 0 and oh % plan["tile_h"] == 0
+    assert plan["tiles"] == b * oh * ow // 128 * (n // plan["bn"])
+    smem = (plan["stages"] * (128 + plan["bn"]) * plan["bk"] + int8.QK1_STAGING_BYTES
+            + int8.QK1_BARRIER_BYTES)
+    assert 4 <= plan["stages"] <= int8.QK1_MAX_STAGES and smem <= int8.QK1_SMEM_BYTES
+
+
+@pytest.mark.parametrize("shape,aligned,want", [
+    ((128, 3, 256, 256, 64, 7, 2, 1, (2, 3, 2, 3)), True, "scalar"),  # the 7x7 stem
+    ((2, 24, 9, 10, 40, 3, 1, 1, (1, 1, 1, 1)), True, "scalar"),  # C % 16 != 0
+    ((2, 64, 9, 9, 64, 3, 1, 1, (1, 1, 1, 1)), False, "scalar"),  # unaligned tensors
+    ((2, 64, 9, 9, 64, 3, 3, 1, (1, 1, 1, 1)), True, "scalar"),  # stride 3
+    ((2, 16, 10, 10, 70, 3, 2, 1, (1, 1, 1, 1)), True, "wgmma"),  # ragged N, torch pads
+    ((3, 32, 13, 11, 24, 3, 2, 1, (1, 1, 0, 1)), True, "wgmma"),  # odd sizes, uneven pads
+], ids=["stem_c3", "c24", "unaligned", "stride3", "torch_pads_n70", "odd_13x11"])
+def test_qk1_plan_variant_choice(shape, aligned, want):
+    b, c, h, w, n, k, stride, dil, pads = shape
+    assert int8.qk1_plan(b, c, h, w, n, k, k, stride, dil, pads, aligned)["variant"] == want
+
+
+def test_qk1_plan_refuses_what_no_variant_takes():
+    with pytest.raises(ValueError, match="no QK1 variant"):
+        int8.qk1_plan(1, 16384, 4, 4, 8, 3, 3, 1, 1, (1, 1, 1, 1))  # K = 147456: int32 overflows
+    x = torch.zeros((1, 16384, 4, 4), dtype=torch.int8)
+    w = torch.zeros((8, 3, 3, 16384), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        int8.int8_conv_cuda(x, w, 1, 1, (1, 1, 1, 1))
+
+
+def test_int8_forward_runs_the_path_tables_through_qk1(monkeypatch):
+    """The default int8 model's backbone forward makes one QK1 launch per
+    quantized conv, 52 in all: the 16 3x3 convs of `chip_smoke.QK1_PATH`
+    and the 36 1x1 convs of `QK1_PATH_1X1`, with their epilogues and
+    counts; and 20 QK2 launches, all `quantize`. The launches are recorded
+    at B = 1 (the tables' B is the serving batch 128); the recorder returns
+    zeros of the launch's shape."""
+    calls, forms = [], []
+
+    def record_conv(xq, wq, stride, dilation, pads, epilogue="acc", scale=None, bias=None,
+                    relu=True, out_dtype=None):
+        b, c, h, w, n, kh, kw, oh, ow = int8._conv_shapes(xq, wq, stride, dilation, pads)
+        calls.append((c, h, w, n, kh, stride, dilation, epilogue, out_dtype))
+        dtype = {"acc": torch.int32, "requant": torch.int8, "dequant": out_dtype}[epilogue]
+        return torch.zeros((b, n, oh, ow), dtype=dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    def record_elementwise(form, x, *args, **kwargs):
+        forms.append(form)
+        return torch.zeros_like(x, dtype=torch.int8)
+
+    monkeypatch.setattr(tq, "int8_conv", record_conv)
+    monkeypatch.setattr(tq, "int8_elementwise", record_elementwise)
+    from metro_pose3d_tpu_torch.config import Config as PortConfig
+    from metro_pose3d_tpu_torch.config import apply_overrides as port_overrides
+
+    cfg = port_overrides(PortConfig(), {"model.quantize": "int8", "model.compute_dtype": "float32"})
+    assert cfg.model.proc_side == 256
+    model = MetroModel(cfg.model).eval()
+    with torch.no_grad():
+        model.backbone(torch.zeros((1, 3, 256, 256)).contiguous(memory_format=torch.channels_last))
+    want = {}
+    for b, c, h, w, n, k, stride, dil, count in chip_smoke.QK1_PATH.values():
+        want[c, h, w, n, k, stride, dil, "requant", None] = count
+    for b, c, h, w, n, k, stride, dil, count, epi in chip_smoke.QK1_PATH_1X1.values():
+        key = (c, h, w, n, k, stride, dil, epi, torch.float32 if epi == "dequant" else None)
+        want[key] = count
+    got = {}
+    for key in calls:
+        got[key] = got.get(key, 0) + 1
+    assert got == want
+    assert len(calls) == 52 and forms == ["quantize"] * 20
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
