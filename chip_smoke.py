@@ -37,10 +37,11 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              float32 within 1e-6, bf16 within one bf16 ulp of the float32
              sum; two launches on one input bitwise equal
  10 train    the training path at the default Config() (R50@256 bf16, 64 3D
-             + 32 2D rows, 512^2 tiles, background_prob 0.7) through
-             `train()`, on batches that carry a foreground mask: 10 steps
+             + 32 2D rows, 512^2 tiles, background_prob 0.7) through the
+             batch-fed loop (`trainer._train_on_batches`, the loop of
+             `train()`), on batches that carry a foreground mask: 10 steps
              with a checkpoint at 5, a resume from 5 to 10, then 20 steps on
-             one batch whose loss must fall; `train()` builds the procedural
+             one batch whose loss must fall; the loop builds the procedural
              background bank and every step composites on the card; all
              four kernels must have launched, the pool's forward and
              backward in their 16-byte variants, the warp with its unit
@@ -67,7 +68,7 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              card against CPU for (a) and (b); crops/s of (a), (b), (c)
  15 f-train  training (a) from a backbone `.npz` written from a seeded
              torchvision-named state dict (`train.backbone_init`): 6 steps
-             of 64 + 32 rows on one batch through `train()`, the loss must
+             of 64 + 32 rows on one batch through the batch-fed loop, the loss must
              fall, the `torch` forward and backward kernels must have
              launched; 3 steps of (b) for the `keras` pair; one float32 step
              of (a) on the card and on the CPU
@@ -106,6 +107,28 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              bound, int8 crops/s beside bf16 in turns (crop-in TTA B=64, no
              TTA B=128, tile-in TTA B=64), and a profiler breakdown of int8
              tile-in serving
+
+ 18 feed     the host input pipeline: builds the host runtime
+             (`metro_pose3d_tpu_torch/native/`, the C crop engine and, where
+             libjpeg is found, the JPEG decoder, into `build/native/`) and
+             prints the seconds; decodes the JPEG fixture in `tests/fixtures/`
+             against its stored pixels where libjpeg was found; holds
+             `prepare_example`'s native engine to its python one over 64 draws
+             (flips, large rotations, a distorted camera, 2D-only rows with
+             NaN, masks; float fields within 1e-6, uint8 equal); measures
+             (informative) the examples/s of `batch_iterator` by engine, pool
+             type and worker count, with the synthetic render and on frames
+             held in memory, and the copy of one 96-row batch to the card,
+             pageable and pinned; then `train(Config(), SyntheticDataset, a
+             2D-only view)` with `data.host_prep` auto (which must resolve to
+             the C engine) through the loader and `prefetch`: 10 steps with a
+             checkpoint at 5 and a resume from 5 to 10 that must prepare 5 x
+             96 examples and no skipped one, finite losses, K1 unit, K2 and K3
+             forward and backward (16-byte variants) launched, the wall time a
+             step and the share of it spent waiting for the loader beside phase
+             12's device-resident step; and 3 steps on a dataset whose
+             `has_masks` is true, where `train()` must build the background
+             bank and composite at every step
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -161,6 +184,7 @@ WARP_TOL = 0.05  # [0,255] units: float32 coordinate ulps through the bilinear w
 # at R50@256), for cuDNN's other summation orders.
 PARITY_TOL = {"pose3d_rootrel": 0.05, "pose2d_px": 0.01, "pose3d_abs": 1.0}
 OCC_TOL = 1e-5  # [0,1] units; the kernel keeps the plain version's order of operations
+ENGINE_RTOL = 1e-6  # the C crop engine against numpy: float32 outputs of float64 math
 N3D, N2D = 64, 32  # rows of a train batch (Config().train.batch_size, batch_size_2d)
 # One float32 train step, card against CPU (R50@128, B=4, TF32 off): the
 # losses are sums over the same forward in another order; the gradient norm
@@ -352,7 +376,7 @@ def device_ms(fn, kernel, iters: int = 20, warmup: int = 3) -> float:
     a call as the tuple has entries, as `launched_kernels` lists them). The
     profiler may miss launches of its window, so the mean is over the
     launches it recorded, at least half of them; a window that recorded
-    fewer is profiled again, four windows at most (two in a row once
+    fewer is profiled again, eight windows at most (two in a row once
     recorded none of the plain gather's launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -362,7 +386,7 @@ def device_ms(fn, kernel, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(4):
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -374,21 +398,22 @@ def device_ms(fn, kernel, iters: int = 20, warmup: int = 3) -> float:
                 count += evt.count
         if iters / 2 <= count / len(names) <= iters:
             return total / 1e3 / (count / len(names))
-    fail(f"the profiler saw {count} launches of {names} in {iters} calls, four times")
+    fail(f"the profiler saw {count} launches of {names} in {iters} calls, eight times")
 
 
 def launched_kernels(fn, calls: int = 10) -> tuple:
     """The names of the device kernels one call of fn launches, once for
     each launch, by the profiler over `calls` calls after a warm-up call:
     how a PyTorch call's own ATen kernels are found, to time them by
-    `device_ms`. The profiler may miss launches of a window, so a window
-    that saw none is profiled again, twice at most."""
+    `device_ms`. The profiler may miss launches of a window (three windows
+    in a row saw none of `take_along_dim`'s once), so a window that saw
+    none is profiled again, seven times at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -398,7 +423,7 @@ def launched_kernels(fn, calls: int = 10) -> tuple:
         if counts:
             return tuple(sorted(name for name, n in counts.items()
                                 for _ in range(max(1, round(n / calls)))))
-    fail("the profiler saw no device kernel of a call, three times")
+    fail("the profiler saw no device kernel of a call, eight times")
 
 
 def kernel_resources(cuobjdump: str, lib_path, names):
@@ -898,7 +923,7 @@ def phase_families_training(rng, dev, card, bank_np):
     from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
     from metro_pose3d_tpu_torch.train.loop import make_train_step
     from metro_pose3d_tpu_torch.train.state import create_train_state
-    from metro_pose3d_tpu_torch.train.trainer import train
+    from metro_pose3d_tpu_torch.train.trainer import _train_on_batches
     from metro_pose3d_tpu_torch.utils.convert_backbone import (
         load_backbone_npz, save_backbone_npz, torchvision_resnet_to_state_dict,
     )
@@ -932,7 +957,7 @@ def phase_families_training(rng, dev, card, bank_np):
             warp.reset_launches()
             occlusion.LAUNCHES = 0
             t0 = time.perf_counter()
-            state = train(cfg, iter(host), occluder_bank=bank_np, max_steps=steps)
+            state = _train_on_batches(cfg, iter(host), occluder_bank=bank_np, max_steps=steps)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             with open(os.path.join(cfg.train.logdir, "history.json")) as f:
@@ -1642,6 +1667,359 @@ def phase_int8(rng, gen, dev, card, rates):
     return records, {"pool": path["pool"], "warp": path["warp"], "warp_forms": path_warp_forms}
 
 
+# --- phase 18: the host feed and train() from datasets -----------------------
+# The datasets below are fixtures of this script, module-level so that a
+# process pool can pickle them.
+
+
+class CountingSynthetic:
+    """The port's SyntheticDataset, counting the examples the loader asks
+    for: one byte appended to `log` for each, so that loader processes count
+    too (`prepared()`)."""
+
+    root_joint = "pelv"
+    has_masks = False
+
+    def __init__(self, n_train, log, imshape=(TILE, TILE), seed=0):
+        from metro_pose3d_tpu_torch.data.synthetic import SyntheticDataset
+
+        self.base = SyntheticDataset(n_train=n_train, n_test=0, seed=seed, imshape=imshape)
+        self.joint_info, self.n_train, self.n_test = self.base.joint_info, n_train, 0
+        self.log = log
+        open(log, "wb").close()
+
+    def prepared(self) -> int:
+        return os.path.getsize(self.log)
+
+    def train_example(self, i):
+        with open(self.log, "ab") as f:
+            f.write(b".")
+        return self.base.train_example(i)
+
+
+class TwoDView(CountingSynthetic):
+    """A 2D-only view in the MPII convention: the synthetic skeleton's joints
+    that MPII names, projected into the frame, the others NaN and invalid."""
+
+    def __init__(self, n_train, log, imshape=(TILE, TILE), seed=1):
+        from metro_pose3d_tpu_torch.geom.joints import MPII_16
+
+        super().__init__(n_train, log, imshape, seed)
+        self.joint_info = MPII_16
+
+    def train_example(self, i):
+        import dataclasses
+
+        ex = super().train_example(i)
+        names = self.base.joint_info.names
+        px = ex.camera.world_to_image(ex.world_coords)
+        pts = np.full((self.joint_info.n_joints, 2), np.nan)
+        valid = np.zeros(self.joint_info.n_joints, bool)
+        for j, name in enumerate(self.joint_info.names):
+            if name in names:
+                pts[j], valid[j] = px[names.index(name)], True
+        return dataclasses.replace(ex, world_coords=None, image_coords=pts,
+                                   joint_validity=valid)
+
+
+class MaskedView(CountingSynthetic):
+    """Synthetic examples with a foreground mask (the discs' neighbourhood),
+    which asks train() for background replacement, as 3DHP's does."""
+
+    has_masks = True
+
+    def train_example(self, i):
+        ex = super().train_example(i)
+        ex.mask = (ex.image != ex.image[0, 0]).any(-1)
+        return ex
+
+
+class HeldFrames:
+    """Examples rendered once and held in memory: the feed without the render."""
+
+    root_joint = "pelv"
+
+    def __init__(self, examples):
+        from metro_pose3d_tpu_torch.geom.joints import H36M_17
+
+        self.examples, self.joint_info = examples, H36M_17
+        self.n_train, self.n_test = len(examples), 0
+
+    def train_example(self, i):
+        return self.examples[i]
+
+
+def feed_rate(ds, batch, n_batches, **kw) -> float:
+    """Examples/s of `batch_iterator` over `ds` after one warm-up batch (pool
+    start-up and first builds excluded)."""
+    from metro_pose3d_tpu_torch.config import Config
+    from metro_pose3d_tpu_torch.pipeline.loader import batch_iterator
+
+    it = batch_iterator(ds.train_example, ds.n_train, ds.joint_info, batch, 256, TILE,
+                        aug_cfg=Config().aug, seed=SEED, n_occluders=64, **kw)
+    try:
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            next(it)
+        return n_batches * batch / (time.perf_counter() - t0)
+    finally:
+        it.close()
+
+
+def check_engines(rng) -> str:
+    """`prepare_example` in the native engine against the python one on this
+    host, over 64 draws: flips, large rotations, a distorted camera, 2D-only
+    rows with NaN and invalid joints, and masks."""
+    import dataclasses
+
+    from metro_pose3d_tpu_torch.config import Config
+    from metro_pose3d_tpu_torch.data.synthetic import make_example
+    from metro_pose3d_tpu_torch.geom.joints import H36M_17
+    from metro_pose3d_tpu_torch.pipeline.crops import prepare_example, sample_aug_params
+
+    aug_rng, worst, kinds = np.random.default_rng(SEED), 0.0, {}
+    for i in range(64):
+        ex, kind, kw = make_example(i, imshape=(720, 960)), ("aug", "distorted_flip_rot",
+                                                            "2d_nan", "mask")[i % 4], {}
+        aug, occ = sample_aug_params(aug_rng, Config().aug, 64, 32)
+        if kind == "distorted_flip_rot":
+            ex.camera.dist[:] = [-0.2, 0.05, 1e-3, -5e-4, 0.01]
+            aug = dataclasses.replace(aug, flip=True, rot_rad=np.deg2rad(rng.uniform(-88, 88)))
+        elif kind == "2d_nan":
+            pts = ex.camera.world_to_image(ex.world_coords)
+            pts[3] = np.nan
+            valid = np.ones(17, bool)
+            valid[5] = False
+            ex = dataclasses.replace(ex, world_coords=None, image_coords=pts,
+                                     joint_validity=valid)
+        elif kind == "mask":
+            ex.mask = rng.random_sample((720, 960)) > 0.4
+            kw = {"with_background": True}
+        a, b = (prepare_example(ex, H36M_17, 256, TILE, aug=aug, occ_center=occ, engine=e, **kw)
+                for e in ("python", "native"))
+        if a.keys() != b.keys():
+            fail(f"engines: keys {sorted(a)} != {sorted(b)}")
+        for k in a:
+            x, y = np.asarray(a[k]), np.asarray(b[k])
+            if x.dtype == np.uint8:
+                if not np.array_equal(x, y):
+                    fail(f"engines: {kind} draw {i}: {k} differs")
+                continue
+            diff = np.abs(x.astype(np.float64) - y) / (1.0 + np.abs(y))
+            if np.any(diff > ENGINE_RTOL):
+                fail(f"engines: {kind} draw {i}: {k} differs by more than rtol {ENGINE_RTOL}")
+            worst = max(worst, float(diff.max(initial=0.0)))
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return f"{kinds}, worst relative difference {worst:.1e} (rtol {ENGINE_RTOL})"
+
+
+def phase_feed(rng, dev, card, resident_step_ms) -> dict:
+    """18: the host runtime's build, the engines on this host, the feed's
+    rates, the copy to the card, then train() from datasets. -> the K1 unit,
+    K2 and K3 forward and backward launches of the train-from-dataset runs."""
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+    from metro_pose3d_tpu_torch.data.synthetic import SyntheticDataset
+    from metro_pose3d_tpu_torch.native import build as native
+    from metro_pose3d_tpu_torch.ops import occlusion, pool, warp
+    from metro_pose3d_tpu_torch.pipeline import crops
+    from metro_pose3d_tpu_torch.pipeline import device as pdevice
+    from metro_pose3d_tpu_torch.pipeline.device import batch_to_device
+    from metro_pose3d_tpu_torch.pipeline.loader import batch_iterator
+    from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
+    from metro_pose3d_tpu_torch.train.trainer import train
+    from metro_pose3d_tpu_torch.utils import improc
+
+    t_phase = time.perf_counter()
+    # the host runtime: the crop engine, then the JPEG decoder
+    t0 = time.perf_counter()
+    if native.crop_library() is None:
+        fail(f"the crop engine did not build: {native.build_error('croprep')}")
+    t_crop = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    have_jpeg = native.load("jpegdec") is not None
+    t_jpeg = time.perf_counter() - t0
+    cc = subprocess.run([native._compiler(), "--version"], capture_output=True, text=True,
+                        timeout=60).stdout.splitlines()[:1]
+    print(f"[18 feed] host runtime ({cc[0] if cc else native._compiler()}): crop engine built "
+          f"in {native.build_seconds.get('croprep', 0.0):.2f} s (load {t_crop:.2f} s), JPEG "
+          f"decoder " + (f"built in {native.build_seconds.get('jpegdec', 0.0):.2f} s (load "
+                          f"{t_jpeg:.2f} s): libjpeg found" if have_jpeg else
+                          "not built: libjpeg not found (no JPEG lies on this path): "
+                          + (native.build_error("jpegdec") or "").strip().splitlines()[-1]))
+    if have_jpeg:
+        fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+        got = improc.imread(os.path.join(fixture, "rgb_48x64.jpg"))
+        want = np.load(os.path.join(fixture, "rgb_48x64_pixels.npz"))["rgb"]
+        if not np.array_equal(got, want):
+            fail(f"JPEG decode of the fixture differs from its stored pixels at "
+                 f"{int((got != want).any(-1).sum())} pixels")
+        print("[18 feed] JPEG fixture tests/fixtures/rgb_48x64.jpg decodes to its stored "
+              "pixels bit for bit")
+    if crops.resolve_engine("auto") != "native":
+        fail("data.host_prep='auto' did not resolve to the native engine")
+    print(f"[18 feed] engines, native vs python on this host: {check_engines(rng)}")
+
+    # the feed's rates (informative)
+    ncpu = os.cpu_count() or 1
+    many = min(ncpu, 32)
+    b = N3D + N2D
+    ds = SyntheticDataset(n_train=4096, n_test=0, imshape=(TILE, TILE))
+    t0 = time.perf_counter()
+    held = HeldFrames([ds.train_example(i) for i in range(2 * b)])
+    render_ms = (time.perf_counter() - t0) / (2 * b) * 1e3
+    rates = {}
+    for engine, pool_type, workers, frames, n in (
+            ("python", "thread", 4, "render", 2), ("native", "thread", 4, "render", 3),
+            ("native", "thread", many, "render", 3), ("native", "process", 4, "render", 3),
+            ("native", "process", many, "render", 4),
+            ("python", "thread", many, "held", 2), ("native", "thread", 4, "held", 4),
+            ("native", "thread", many, "held", 6)):
+        rates[engine, pool_type, workers, frames] = r = feed_rate(
+            held if frames == "held" else ds, b, n, n_workers=workers, pool_type=pool_type,
+            host_prep=engine)
+        print(f"[18 feed] batch_iterator {engine} engine, {pool_type} pool of {workers}, "
+              f"{'synthetic render' if frames == 'render' else 'frames held in memory'}, "
+              f"{TILE}^2 frames and tiles, proc 256, aug on: {r:.1f} examples/s  "
+              f"[{ncpu} CPUs; {card}]")
+    print(f"[18 feed] the synthetic render alone: {render_ms:.2f} ms a {TILE}^2 frame on one "
+          f"thread; os.cpu_count() {ncpu}")
+
+    # the copy of one train batch to the card, pageable (as batch_to_device
+    # does) and staged through pinned memory
+    hb = next(batch_iterator(held.train_example, held.n_train, held.joint_info, b, 256, TILE,
+                             aug_cfg=Config().aug, n_workers=many, host_prep="native"))
+    nbytes_batch = sum(v.nbytes for v in hb.values())
+    pinned = {k: torch.from_numpy(v).pin_memory() for k, v in hb.items()}
+    copies = {}
+    for how, fn in (("pageable", lambda: batch_to_device(hb, dev)),
+                    ("pinned", lambda: {k: v.to(dev, non_blocking=True)
+                                        for k, v in pinned.items()})):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        copies[how] = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"[18 feed] copy of one {b}-row batch ({nbytes_batch / 1e6:.1f} MB) to the card: "
+          + ", ".join(f"{how} {ms:.2f} ms ({nbytes_batch / ms / 1e6:.2f} GB/s)"
+                      for how, ms in copies.items()) + f"  [{card}]")
+    del pinned, hb
+
+    # train() from datasets, through the C engine, at full width, fed by a
+    # pool of processes (threads starve the step of the interpreter lock
+    # while they render)
+    over = {"train.checkpoint_every": "5", "train.log_every": "1", "train.validate_every": "0",
+            "data.host_prep": "auto", "data.workers": str(many), "data.pool_type": "process"}
+    composites = []
+    composite = pdevice.composite_background
+
+    def counted_composite(src, mask, bg_bank, bg_params):
+        composites.append(tuple(bg_bank.shape))
+        return composite(src, mask, bg_bank, bg_params)
+
+    def steady(hist):  # a leg past its first step: ms a step, crops/s, loader-wait share
+        ms = float(np.median([b / r["crops_per_sec"] * 1e3 for r in hist[1:]]))
+        return ms, b / ms * 1e3, float(np.median([r["loader_wait_share"] for r in hist[1:]]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = apply_overrides(Config(), {**over, "train.logdir": os.path.join(tmp, "run")})
+        d3 = CountingSynthetic(1024, os.path.join(tmp, "n3"))
+        d2 = TwoDView(1024, os.path.join(tmp, "n2"))
+        pool.reset_launches()
+        warp.reset_launches()
+        occlusion.LAUNCHES = 0
+        t0 = time.perf_counter()
+        state = train(cfg, d3, d2, max_steps=10)
+        torch.cuda.synchronize()
+        first_leg = time.perf_counter() - t0
+        first_prepared = (d3.prepared(), d2.prepared())
+        logdir = cfg.train.logdir
+        with open(os.path.join(logdir, "history.json")) as f:
+            hist = json.load(f)
+        for name in os.listdir(os.path.join(logdir, "checkpoints")):
+            if name != "5":
+                shutil.rmtree(os.path.join(logdir, "checkpoints", name))
+        if Checkpointer(logdir).latest_step() != 5:
+            fail("the checkpoint of step 5 is missing")
+        d3, d2 = CountingSynthetic(1024, d3.log), TwoDView(1024, d2.log)
+        resumed = train(cfg, d3, d2, max_steps=10)
+        torch.cuda.synchronize()
+        launches = {"pool": pool.MODE_LAUNCHES["same"],
+                    "pool_bwd": pool.MODE_BWD_LAUNCHES["same"],
+                    "warp": warp.LAUNCHES, "occluder": occlusion.LAUNCHES}
+        if any(v == 0 for v in launches.values()):
+            fail(f"train() from datasets did not launch every kernel: {launches}")
+        check_pool_variants("train() from datasets", ("fwd", "bwd"))
+        check_warp_forms_launched("train() from datasets", ("unit", torch.float32))
+        forms = dict(warp.KERNEL_LAUNCHES)
+        if state.step != 10 or resumed.step != 10:
+            fail(f"train() from datasets: steps {state.step}, {resumed.step} (want 10)")
+        resumed_prepared = (d3.prepared(), d2.prepared())
+        if resumed_prepared != (5 * N3D, 5 * N2D) or first_prepared != (10 * N3D, 10 * N2D):
+            fail(f"examples prepared: {first_prepared} in 10 steps, {resumed_prepared} in the "
+                 f"resumed 5 (want {(10 * N3D, 10 * N2D)} and {(5 * N3D, 5 * N2D)})")
+        with open(os.path.join(logdir, "history.json")) as f:
+            hist2 = json.load(f)
+        for h in (hist, hist2):
+            if [r["step"] for r in h] != list(range(1, 11)) or not all(
+                    np.isfinite([r["loss"], r["loss3d"], r["loss2d"], r["grad_norm"]]).all()
+                    for r in h):
+                fail(f"train() from datasets: history not finite or not steps 1..10: {h}")
+        print(f"[18 feed] train(Config(), SyntheticDataset, a 2D-only MPII view) R50@256 bf16, "
+              f"B={N3D}+{N2D}, {TILE}^2 frames and tiles, data.host_prep auto -> native, process "
+              f"pool of {many}, prefetch 2: 10 steps in {first_leg:.1f} s (loss "
+              f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, finite), checkpoint at 5, "
+              f"resumed 5 -> 10 preparing {resumed_prepared[0]} + {resumed_prepared[1]} = "
+              f"{sum(resumed_prepared)} examples (5 x {b}); launches {launches}, warp forms "
+              f"{fmt_forms(forms, 'd')}, pool variants {pool.VARIANT_LAUNCHES}")
+        for what, h in (("steps 2-10", hist), ("resumed steps 7-10", hist2[6:])):
+            ms, rate, wait = steady(h)
+            print(f"[18 feed] train() from datasets, process pool of {many}, {what}: {ms:.1f} ms "
+                  f"a step (wall), {rate:.1f} crops/s, waiting for the loader {wait:.0%} of the "
+                  f"step; phase 12's device-resident step {resident_step_ms:.1f} ms  [{card}]")
+        del state, resumed
+        torch.cuda.empty_cache()
+
+        # a dataset with masks: train() builds the background bank and
+        # composites; fed by a pool of threads, for the comparison
+        mcfg = apply_overrides(cfg, {"train.logdir": os.path.join(tmp, "masked"),
+                                     "aug.background_prob": "0.7", "data.pool_type": "thread",
+                                     "data.workers": "4", "train.checkpoint_every": "3"})
+        pdevice.composite_background = counted_composite
+        pool.reset_launches()
+        warp.reset_launches()
+        occlusion.LAUNCHES = 0
+        try:
+            t0 = time.perf_counter()
+            state = train(mcfg, MaskedView(256, os.path.join(tmp, "m3")),
+                          TwoDView(256, os.path.join(tmp, "m2")), max_steps=3)
+            torch.cuda.synchronize()
+        finally:
+            pdevice.composite_background = composite
+        for k, v in (("pool", pool.MODE_LAUNCHES["same"]),
+                     ("pool_bwd", pool.MODE_BWD_LAUNCHES["same"]), ("warp", warp.LAUNCHES),
+                     ("occluder", occlusion.LAUNCHES)):
+            launches[k] += v
+        for k, v in warp.KERNEL_LAUNCHES.items():
+            forms[k] = forms.get(k, 0) + v
+        if state.step != 3 or composites != [(32, TILE, TILE, 3)] * 3:
+            fail(f"masked dataset: {state.step} steps, composites {composites} (want 3 with "
+                 f"the bank of 32 that train() builds)")
+        with open(os.path.join(tmp, "masked", "history.json")) as f:
+            ms, rate, wait = steady(json.load(f))
+        print(f"[18 feed] a dataset with has_masks, aug.background_prob 0.7: train() built the "
+              f"bank of 32 {TILE}^2 tiles and composited at each of the 3 steps "
+              f"({time.perf_counter() - t0:.1f} s with the bank's build); thread pool of 4, "
+              f"steps 2-3: {ms:.1f} ms a step (wall), {rate:.1f} crops/s, waiting for the loader "
+              f"{wait:.0%}  [{card}]")
+        del state
+    torch.cuda.empty_cache()
+    print(f"[18 feed] phase time {time.perf_counter() - t_phase:.1f} s")
+    return {**launches, "warp_forms": forms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
@@ -1857,7 +2235,7 @@ def main() -> int:
     from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
     from metro_pose3d_tpu_torch.train.loop import make_train_step
     from metro_pose3d_tpu_torch.train.state import create_train_state
-    from metro_pose3d_tpu_torch.train.trainer import train
+    from metro_pose3d_tpu_torch.train.trainer import _train_on_batches
 
     # 8 K2: occluder paste kernel against its plain version
     bank_np = make_procedural_occluders(64, 96)
@@ -1916,8 +2294,8 @@ def main() -> int:
 
     def run(logdir, extra, batches, steps, bg_bank=bg_np):
         tcfg = apply_overrides(Config(), {**over, **extra, "train.logdir": logdir})
-        state = train(tcfg, batches, occluder_bank=bank_np, max_steps=steps,
-                      background_bank=bg_bank)
+        state = _train_on_batches(tcfg, batches, occluder_bank=bank_np, max_steps=steps,
+                                  background_bank=bg_bank)
         torch.cuda.synchronize()
         with open(os.path.join(logdir, "history.json")) as f:
             return state, json.load(f)
@@ -2049,11 +2427,12 @@ def main() -> int:
     st = create_train_state(tcfg, dev, seed=SEED)
     tb = batch_to_device(host[0], dev)
     bg = torch.from_numpy(bg_np).to(dev)
+    resident_ms = {}
     for what, step in (("no background bank", make_train_step(tcfg, 0, occluder_bank=bank)),
                        ("masked batch with the background bank",
                         make_train_step(tcfg, 0, occluder_bank=bank, background_bank=bg))):
         torch.cuda.reset_peak_memory_stats()
-        step_ms = time_ms(lambda: step(st, tb), iters=5, warmup=2)
+        step_ms = resident_ms[what] = time_ms(lambda: step(st, tb), iters=5, warmup=2)
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"[12 t-time] train step Config() R50@256 bf16 B={N3D + N2D}, {what}: "
               f"{step_ms:.2f} ms, {(N3D + N2D) / step_ms * 1e3:.1f} crops/s, peak {peak:.2f} GiB"
@@ -2068,6 +2447,7 @@ def main() -> int:
     ftrain_launches = phase_families_training(rng, dev, card, bank_np)  # 15
     probe_records = phase_probes(dev, card, rates)  # 16
     int8_records, int8_path = phase_int8(rng, gen, dev, card, rates)  # 17
+    feed = phase_feed(rng, dev, card, resident_ms["no background bank"])  # 18
 
     def kernel(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms, **more):
         return {"name": name, "route": "cuda",
@@ -2089,12 +2469,13 @@ def main() -> int:
     record = {"kernels": [
         kernel("maxpool3x3s2_same", "maxpool3x3s2.cu", pallas_pool,
                launches["pool"] + train_launches["pool"] + fam_launches["d_twofive"]["pool_same"]
-               + int8_path["pool"],
+               + int8_path["pool"] + feed["pool"],
                pool_err, pool_ms, pool_plain_ms, pool_bound, None,
                bound_share=pool_bound[0] / pool_ms, two_calls_ms=pool_two_calls_ms,
                ms_scalar=pool_scalar_ms),
         kernel("maxpool3x3s2_same_bwd", "maxpool3x3s2_bwd.cu", pallas_pool,
-               train_launches["pool_bwd"], bwd_err, bwd_ms, bwd_plain_ms, bwd_bound, None,
+               train_launches["pool_bwd"] + feed["pool_bwd"], bwd_err, bwd_ms, bwd_plain_ms,
+               bwd_bound, None,
                bound_share=bwd_bound[0] / bwd_ms, ms_relu=bwd_relu_ms, ms_scalar=bwd_scalar_ms),
         *[kernel(f"maxpool3x3s2_{mode}" + ("_bwd" if way == "bwd" else ""),
                  "maxpool3x3s2_bwd.cu" if way == "bwd" else "maxpool3x3s2.cu", pallas_pool,
@@ -2104,15 +2485,18 @@ def main() -> int:
                                       "ms_scalar") if k in r})
           for (mode, way), r in modes.items()],
         kernel("warp_crop", "warp_crop.cu", "metro_pose3d_tpu/ops/warp_pallas.py:415",
-               launches["warp"] + train_launches["warp"] + int8_path["warp"], warp_max, none["ms"],
+               launches["warp"] + train_launches["warp"] + int8_path["warp"] + feed["warp"],
+               warp_max, none["ms"],
                none["plain_ms"],
                (none["bound_ms"], none["bound_by"]), None, call_ms=none["call_ms"],
                bound_share=none["bound_share"],
                forms={f"{e}_{str(d)[6:]}": {**r, "launches": serve_forms[e, d] + train_forms[e, d]
-                                                + int8_path["warp_forms"][e, d]}
+                                                + int8_path["warp_forms"][e, d]
+                                                + feed["warp_forms"].get((e, d), 0)}
                       for (e, d), r in warp_forms.items()}),
         kernel("occluder_paste", "occluder_paste.cu", "metro_pose3d_tpu/ops/warp_pallas.py:507",
-               train_launches["occluder"], occ_err, occ_ms, occ_plain_ms, occ_bound, None),
+               train_launches["occluder"] + feed["occluder"], occ_err, occ_ms, occ_plain_ms,
+               occ_bound, None),
         *probe_records,
         *int8_records,
     ]}

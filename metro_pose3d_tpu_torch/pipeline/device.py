@@ -17,6 +17,33 @@ from metro_pose3d_tpu_torch.ops.occlusion import occlude_with_bank, pack_occlude
 from metro_pose3d_tpu_torch.ops.warp import warp_images
 
 
+def example_spec(joint_count: int, tile_side: int, proc_side: int) -> dict:
+    """Shape/dtype spec of one prepared example (the host -> device
+    contract the loader keeps): key -> (shape, numpy dtype).
+
+    Optional keys (present when background replacement is active, i.e. the
+    loader was built with a background bank): "source_mask" (tile_side,
+    tile_side) uint8 and "bg_params" (2,) float32. The loader adds "_pad"
+    (batch,) float32 to each batch; the train step reads no such key.
+    """
+    j = joint_count
+    return {
+        "source": ((tile_side, tile_side, 3), np.uint8),
+        "warp_h": ((3, 3), np.float32),
+        "warp_k": ((4,), np.float32),
+        "warp_dist": ((5,), np.float32),
+        "coords3d_true": ((j, 3), np.float32),
+        "coords2d_true": ((j, 2), np.float32),
+        "joint_validity": ((j,), np.float32),
+        "joint_validity_2d": ((j,), np.float32),
+        "is_3d": ((), np.float32),
+        "intrinsics": ((3, 3), np.float32),
+        "color_params": ((4,), np.float32),
+        "occ_params": ((2,), np.float32),
+        "occ_affine": ((2, 3), np.float32),
+    }
+
+
 def pack_occluder_bank_for(bank_rgba01, device) -> torch.Tensor:
     """Upload the [N,T,T,4] float RGBA occluder bank once, as the uint8 RGBA
     bank the occluder paste samples."""

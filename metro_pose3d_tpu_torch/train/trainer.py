@@ -1,15 +1,15 @@
 """Single-process training loop (`metro_pose3d_tpu/train/trainer.py`):
-moves host batches to the device, runs the step, and keeps the books:
-`config.json`, `history.jsonl` (appended at every log step) and
-`history.json` (the whole run, written at the end), checkpoints every
-`checkpoint_every` steps with auto-resume, `data.cycle_batches` and a
+feeds the step from datasets through the host input pipeline, runs it, and
+keeps the books: `config.json`, `history.jsonl` (appended at every log
+step) and `history.json` (the whole run, written at the end), checkpoints
+every `checkpoint_every` steps with auto-resume, `data.cycle_batches` and a
 `torch.profiler` trace of `profile_steps` steps into `<logdir>/profile`.
 
-The host input pipeline is not ported (the JAX package's loader sits
-behind jax-importing package `__init__`s), so `train` takes an iterator of
-host batches in the `example_spec` layout. On resume it discards the first
-`start_step` batches of that iterator, as the JAX loader's `skip_batches`
-does, so a resumed run sees the batches an uninterrupted one would.
+The feed: `mixed_batch_iterator` (per-example crop prep on loader threads or
+processes, in the C or the numpy engine) -> `prefetch` (a thread that keeps
+two batches ready) -> `batch_to_device`. On resume the loader passes over the
+batches the run already trained on without preparing their examples, as the
+JAX loader's `skip_batches` does.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import json
 import logging
 import os
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -27,12 +27,50 @@ from metro_pose3d_tpu_torch.config import Config, apply_matmul_precision, config
 from metro_pose3d_tpu_torch.device import resolve_device
 from metro_pose3d_tpu_torch.pipeline.backgrounds import get_background_bank
 from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
+from metro_pose3d_tpu_torch.pipeline.loader import batch_iterator, prefetch, stack_examples
 from metro_pose3d_tpu_torch.pipeline.occluders import get_occluder_bank
 from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
+from metro_pose3d_tpu_torch.train.joint_mapping import name_mapping, remap_prepared
 from metro_pose3d_tpu_torch.train.loop import make_lr_schedule, make_train_step
 from metro_pose3d_tpu_torch.train.state import create_train_state
 
 log = logging.getLogger("metro_torch.train")
+
+
+def mixed_batch_iterator(cfg: Config, dataset, dataset2d=None, n_backgrounds=0,
+                         skip_batches=0, n_occluders=1):
+    """Yield host batches: `train.batch_size` 3D rows (+ `batch_size_2d`
+    2D rows remapped by joint name when an auxiliary 2D dataset is given).
+    `n_backgrounds` > 0 adds green-screen mask/params rows to EVERY batch
+    (maskless examples get a no-op all-foreground mask). `skip_batches`
+    passes over the first batches of the schedule without preparing them
+    (resume). `n_occluders` is the real size of the occluder bank, so the
+    sampled indices cover all of it. A 3D-only batch keeps the loader's
+    "_pad"; a merged one drops it, as the JAX package's does."""
+    ji = dataset.joint_info
+
+    def loader(ds, batch_size, seed):
+        return batch_iterator(
+            ds.train_example, ds.n_train, ds.joint_info, batch_size, cfg.model.proc_side,
+            cfg.data.source_side, aug_cfg=cfg.aug, seed=seed, n_workers=cfg.data.workers,
+            n_backgrounds=n_backgrounds, skip_batches=skip_batches, n_occluders=n_occluders,
+            pool_type=cfg.data.pool_type, host_prep=cfg.data.host_prep)
+
+    it3d = loader(dataset, cfg.train.batch_size, cfg.train.seed)
+    if dataset2d is None or cfg.train.batch_size_2d == 0:
+        yield from it3d
+        return
+    mapping = name_mapping(dataset2d.joint_info, ji)
+    it2d = loader(dataset2d, cfg.train.batch_size_2d, cfg.train.seed + 1)
+    try:
+        for b3, b2 in zip(it3d, it2d):
+            rows = [remap_prepared({k: b2[k][i] for k in b2 if k != "_pad"}, mapping)
+                    for i in range(len(b2["is_3d"]))]
+            b2r = stack_examples(rows)
+            yield {k: np.concatenate([b3[k], b2r[k]]) for k in b3 if k != "_pad"}
+    finally:  # shut both loaders' pools down now, not when collected
+        it3d.close()
+        it2d.close()
 
 
 def _prior_history(logdir: str, start_step: int) -> list:
@@ -62,28 +100,77 @@ def _check_supported(cfg: Config, total: int) -> None:
             "is not ported yet; set train.validate_every=0")
 
 
-def train(cfg: Config, batches: Iterator[dict], occluder_bank: Optional[np.ndarray] = None,
-          max_steps: Optional[int] = None, root_index: int = 0, device=None,
-          background_bank: Optional[np.ndarray] = None):
-    """Train to `train.num_steps` (or `max_steps`) -> the final `TrainState`.
+def train(cfg: Config, dataset, dataset2d=None, max_steps: Optional[int] = None,
+          occluder_root: Optional[str] = None, background_root: Optional[str] = None,
+          device=None):
+    """Train to `train.num_steps` (or `max_steps`) on `dataset` (and the 2D
+    `dataset2d`, remapped by joint name) -> the final `TrainState`.
 
-    batches: host batches (numpy, `pipeline/device.py::example_spec` layout
-    of the JAX package). occluder_bank: float RGBA [N,T,T,4] in [0, 1]
-    (default: `get_occluder_bank(data.occluder_root)`, procedural without
-    VOC). background_bank: uint8 [N,T,T,3] scene images, T the batches'
-    source side; with `aug.background_prob` > 0 and a first batch that
-    carries "source_mask" (the data has masks) it defaults to
-    `get_background_bank(data.background_root, data.source_side)`
-    (procedural without a directory), and a batch that carries
-    "source_mask" and "bg_params" is composited onto it; otherwise no bank
-    is built or used. device: default the card; a RuntimeError where CUDA
-    is absent.
+    The occluder bank is `get_occluder_bank(occluder_root or
+    data.occluder_root)` (procedural without VOC), its real size passed to
+    the loader. With `aug.background_prob` > 0 and `dataset.has_masks` the
+    background bank is `get_background_bank(background_root or
+    data.background_root, data.source_side)` and the loader ships masks and
+    background parameters; otherwise no bank is built. device: default the
+    card; a RuntimeError where CUDA is absent.
     """
-    t = cfg.train
-    total = min(t.num_steps, max_steps or t.num_steps)
-    _check_supported(cfg, total)
+    _check_supported(cfg, min(cfg.train.num_steps, max_steps or cfg.train.num_steps))
+    device = resolve_device(device)
+    occluder_bank = get_occluder_bank(occluder_root or cfg.data.occluder_root or None,
+                                      tile_side=cfg.aug.occluder_tile_side)
+    bg_bank = None
+    if cfg.aug.background_prob > 0 and getattr(dataset, "has_masks", False):
+        bg_bank = get_background_bank(background_root or cfg.data.background_root or None,
+                                      side=cfg.data.source_side)
+
+    def feed(skip_batches):
+        return mixed_batch_iterator(
+            cfg, dataset, dataset2d, n_backgrounds=0 if bg_bank is None else len(bg_bank),
+            skip_batches=skip_batches, n_occluders=len(occluder_bank))
+
+    root = dataset.joint_info.names.index(dataset.root_joint)
+    return _run(cfg, feed, occluder_bank, bg_bank, max_steps, root, device)
+
+
+def _train_on_batches(cfg: Config, batches: Iterator[dict],
+                      occluder_bank: Optional[np.ndarray] = None,
+                      max_steps: Optional[int] = None, root_index: int = 0, device=None,
+                      background_bank: Optional[np.ndarray] = None):
+    """`train` fed with ready host batches instead of a dataset, for tests
+    and smoke runs that make their own batches (numpy, in the
+    `pipeline/device.py::example_spec` layout).
+
+    occluder_bank: float RGBA [N,T,T,4] in [0, 1] (default as `train`'s).
+    background_bank: uint8 [N,T,T,3]; with `aug.background_prob` > 0 and a
+    first batch that carries "source_mask" it defaults to the bank `train`
+    would build; otherwise none is built or used. On resume the first
+    `start_step` batches of `batches` are discarded.
+    """
+    _check_supported(cfg, min(cfg.train.num_steps, max_steps or cfg.train.num_steps))
     batches = iter(batches)
     device = resolve_device(device)
+    if occluder_bank is None:
+        occluder_bank = get_occluder_bank(cfg.data.occluder_root or None,
+                                          tile_side=cfg.aug.occluder_tile_side)
+    first = next(batches, None)
+    batches = itertools.chain([] if first is None else [first], batches)
+    if cfg.aug.background_prob > 0 and first is not None and "source_mask" in first:
+        if background_bank is None:
+            background_bank = get_background_bank(cfg.data.background_root or None,
+                                                  side=cfg.data.source_side)
+    else:
+        background_bank = None
+    return _run(cfg, lambda skip: itertools.islice(batches, skip, None), occluder_bank,
+                background_bank, max_steps, root_index, device)
+
+
+def _run(cfg: Config, feed: Callable[[int], Iterator[dict]], occluder_bank: np.ndarray,
+         background_bank: Optional[np.ndarray], max_steps: Optional[int], root_index: int,
+         device: torch.device):
+    """The loop of `train`: `feed(k)` gives the host batches from the k-th
+    on (k = the restored step, or 0 with `data.cycle_batches`)."""
+    t = cfg.train
+    total = min(t.num_steps, max_steps or t.num_steps)
     apply_matmul_precision(cfg)
     os.makedirs(t.logdir, exist_ok=True)
     with open(os.path.join(t.logdir, "config.json"), "w") as f:
@@ -94,78 +181,85 @@ def train(cfg: Config, batches: Iterator[dict], occluder_bank: Optional[np.ndarr
     state, start_step = ckpt.restore(state)
     if start_step:
         log.info("resumed from step %d", start_step)
-
-    if occluder_bank is None:
-        occluder_bank = get_occluder_bank(cfg.data.occluder_root or None,
-                                          tile_side=cfg.aug.occluder_tile_side)
-    # 3DHP green-screen replacement, where the data has masks: the
-    # reference asks its dataset, the port the first batch
-    first = next(batches, None)
-    has_masks = first is not None and "source_mask" in first
-    batches = itertools.chain([] if first is None else [first], batches)
     bg_bank = None
-    if cfg.aug.background_prob > 0 and has_masks:
-        if background_bank is None:
-            background_bank = get_background_bank(cfg.data.background_root or None,
-                                                  side=cfg.data.source_side)
+    if background_bank is not None:
         bg_bank = torch.from_numpy(np.ascontiguousarray(background_bank)).to(device)
         log.info("background replacement on: bank of %d tiles", len(background_bank))
     step_fn = make_train_step(cfg, root_index,
                               occluder_bank=pack_occluder_bank_for(occluder_bank, device),
                               background_bank=bg_bank)
 
+    src = feed(0 if cfg.data.cycle_batches > 0 else start_step)
     if cfg.data.cycle_batches > 0:
         # device-resident batches served round-robin; the phase follows the step
-        buf = [batch_to_device(next(batches), device) for _ in range(cfg.data.cycle_batches)]
+        buf = [batch_to_device(next(src), device) for _ in range(cfg.data.cycle_batches)]
         it = (buf[i % len(buf)] for i in range(start_step, total))
     else:
-        for _ in range(start_step):
-            next(batches)
-        it = (batch_to_device(b, device) for b in batches)
+        # prepare exactly the batches this run trains on, two ahead of the step
+        it = (batch_to_device(b, device)
+              for b in prefetch(itertools.islice(src, max(total - start_step, 0))))
 
     lr_sched = make_lr_schedule(cfg)
     history = _prior_history(t.logdir, start_step) if start_step else []
     prof_at = start_step + 3 if t.profile_steps > 0 else None  # past the first steps
     prof = None
-    t_last, n_since = time.perf_counter(), 0
-    with open(os.path.join(t.logdir, "history.jsonl"), "a") as jsonl:
-        done = start_step
-        while done < total:
-            if prof_at is not None and done == prof_at:
-                activities = [torch.profiler.ProfilerActivity.CPU]
-                if device.type == "cuda":
-                    activities.append(torch.profiler.ProfilerActivity.CUDA)
-                prof = torch.profiler.profile(activities=activities)
-                prof.start()
-            batch = next(it)
-            metrics = step_fn(state, batch)
-            n_since += int(batch["is_3d"].shape[0])
-            done += 1
-            if prof is not None and done - prof_at >= t.profile_steps:
-                _stop_profiler(prof, device, t.logdir)
-                prof, prof_at = None, None
+    t_last, n_since, wait = time.perf_counter(), 0, 0.0
+    try:
+        with open(os.path.join(t.logdir, "history.jsonl"), "a") as jsonl:
+            done = start_step
+            while done < total:
+                if prof_at is not None and done == prof_at:
+                    activities = [torch.profiler.ProfilerActivity.CPU]
+                    if device.type == "cuda":
+                        activities.append(torch.profiler.ProfilerActivity.CUDA)
+                    prof = torch.profiler.profile(activities=activities)
+                    prof.start()
+                t_wait = time.perf_counter()
+                batch = next(it)
+                wait += time.perf_counter() - t_wait
+                metrics = step_fn(state, batch)
+                n_since += int(batch["is_3d"].shape[0])
+                done += 1
+                if prof is not None and done - prof_at >= t.profile_steps:
+                    _stop_profiler(prof, device, t.logdir)
+                    prof, prof_at = None, None
 
-            if done % t.log_every == 0 or done == total:
-                scalars = {k: float(v) for k, v in metrics.items()}  # syncs
-                dt = time.perf_counter() - t_last
-                scalars["crops_per_sec"] = n_since / dt
-                scalars["learning_rate"] = float(lr_sched(done - 1))
-                log.info("step %d loss=%.4f (3d=%.4f 2d=%.4f) |g|=%.2f %.1f crops/s", done,
-                         scalars["loss"], scalars["loss3d"], scalars["loss2d"],
-                         scalars["grad_norm"], scalars["crops_per_sec"])
-                row = {"step": done, **scalars}
-                jsonl.write(json.dumps(row) + "\n")
-                jsonl.flush()
-                history.append(row)
-                t_last, n_since = time.perf_counter(), 0
-            if done % t.checkpoint_every == 0 or done == total:
-                ckpt.save(done, state)
+                if done % t.log_every == 0 or done == total:
+                    scalars = {k: float(v) for k, v in metrics.items()}  # syncs
+                    dt = time.perf_counter() - t_last
+                    scalars["crops_per_sec"] = n_since / dt
+                    # the share of the wall time the loop waited for a host
+                    # batch and its copy to the device
+                    scalars["loader_wait_share"] = wait / dt
+                    scalars["learning_rate"] = float(lr_sched(done - 1))
+                    log.info("step %d loss=%.4f (3d=%.4f 2d=%.4f) |g|=%.2f %.1f crops/s, "
+                             "%.0f%% waiting for data", done, scalars["loss"],
+                             scalars["loss3d"], scalars["loss2d"], scalars["grad_norm"],
+                             scalars["crops_per_sec"], 100 * scalars["loader_wait_share"])
+                    row = {"step": done, **scalars}
+                    jsonl.write(json.dumps(row) + "\n")
+                    jsonl.flush()
+                    history.append(row)
+                    t_last, n_since, wait = time.perf_counter(), 0, 0.0
+                if done % t.checkpoint_every == 0 or done == total:
+                    ckpt.save(done, state)
+    finally:
+        _close(src)
     if prof is not None:  # the run ended inside the traced window
         _stop_profiler(prof, device, t.logdir)
     ckpt.wait()
     with open(os.path.join(t.logdir, "history.json"), "w") as f:
         json.dump(history, f)
     return state
+
+
+def _close(src) -> None:
+    """Shut the loader's pools down now rather than when it is collected."""
+    if hasattr(src, "close"):
+        try:
+            src.close()
+        except ValueError:
+            pass  # still running in the prefetch thread (the run failed); it ends with it
 
 
 def _stop_profiler(prof, device, logdir: str) -> None:

@@ -10,7 +10,9 @@ So the port's device code has no matrix product outside the allow-list
 below, each entry with its reason; the int8 product `torch._int_mm` counts
 as one too, so that every matrix product of the device code is listed. The convolutions go through cuDNN and
 follow `model.matmul_precision` (`config.apply_matmul_precision`).
-`geom/camera.py` is not device code: it works on numpy on the host.
+`geom/camera.py` is not device code: it works on numpy on the host. Nor are
+the host input pipeline's modules in `HOST_FILES`: they import no torch, and
+their products are numpy's, in float64, which never round to TF32.
 """
 import ast
 import pathlib
@@ -20,6 +22,8 @@ import pytest
 PKG = pathlib.Path(__file__).resolve().parent.parent / "metro_pose3d_tpu_torch"
 DEVICE_DIRS = ("ops", "models", "evaluation", "pipeline", "train", "probes")
 PRODUCTS = {"einsum", "matmul", "mm", "bmm", "_int_mm"}
+# host numpy modules in those directories (the crop algebra, the loader)
+HOST_FILES = {"pipeline/crops.py", "pipeline/loader.py", "train/joint_mapping.py"}
 
 # (file under the package, enclosing function) -> why the product may stay
 ALLOWED = {
@@ -58,7 +62,16 @@ def _products(tree: ast.AST):
 
 
 def _device_files():
-    return sorted(p for d in DEVICE_DIRS for p in (PKG / d).rglob("*.py"))
+    return sorted(p for d in DEVICE_DIRS for p in (PKG / d).rglob("*.py")
+                  if p.relative_to(PKG).as_posix() not in HOST_FILES)
+
+
+def test_host_files_import_no_torch():
+    for rel in HOST_FILES:
+        tree = ast.parse((PKG / rel).read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+        assert not [m for m in names if m.split(".")[0] == "torch"], rel
 
 
 def test_no_matrix_product_in_device_code_outside_the_allow_list():

@@ -4,8 +4,12 @@ Train steps from one state: a JAX `create_train_state` converted with
 `convert.train_state_from_flax`, on batches from the JAX host loader over
 `SyntheticDataset`, through both packages' train steps; the metrics, the
 per-tensor gradients, the BN statistics and the parameters must agree.
-Also: float32 master parameters under bf16, checkpoints, and `train()`
-with a resume against an uninterrupted run.
+Also: float32 master parameters under bf16, checkpoints, the batch-fed
+loop (`trainer._train_on_batches`) with a resume against an uninterrupted
+run, and `train()` from datasets through the port's host pipeline: the
+batches its step sees against the JAX package's `mixed_batch_iterator`, a
+resume that prepares no skipped example, and the background bank decided by
+`dataset.has_masks`.
 """
 import copy
 import json
@@ -43,7 +47,8 @@ from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
 from metro_pose3d_tpu_torch.train.loop import make_train_step
 from metro_pose3d_tpu_torch.train.state import create_train_state
 from metro_pose3d_tpu_torch.train import trainer as trainer_mod
-from metro_pose3d_tpu_torch.train.trainer import train
+from metro_pose3d_tpu_torch.train.trainer import _train_on_batches, train
+from test_torch_pipeline import JaxSynth
 
 TINY = {
     "model.backbone": "tiny",
@@ -349,10 +354,13 @@ def test_train_resume_equals_uninterrupted_run(tmp_path, host_batches, bank, cyc
             "data.cycle_batches": str(cycle)}
     cfg_a = _cfg(**over, **{"train.logdir": str(tmp_path / "a")})
     cfg_b = _cfg(**over, **{"train.logdir": str(tmp_path / "b")})
-    whole = train(cfg_a, iter(host_batches), occluder_bank=bank, max_steps=8, device="cpu")
-    first = train(cfg_b, iter(host_batches), occluder_bank=bank, max_steps=4, device="cpu")
+    whole = _train_on_batches(cfg_a, iter(host_batches), occluder_bank=bank, max_steps=8,
+                              device="cpu")
+    first = _train_on_batches(cfg_b, iter(host_batches), occluder_bank=bank, max_steps=4,
+                              device="cpu")
     assert first.step == 4
-    resumed = train(cfg_b, iter(host_batches), occluder_bank=bank, max_steps=8, device="cpu")
+    resumed = _train_on_batches(cfg_b, iter(host_batches), occluder_bank=bank, max_steps=8,
+                                device="cpu")
     assert resumed.step == whole.step == 8
     # the same batches in the same order, restored exactly: equal on the CPU
     assert _state_equal(resumed.state_dict(), whole.state_dict())
@@ -371,7 +379,7 @@ def test_train_profile_and_unported_options(tmp_path, host_batches, bank):
     cfg = _cfg(**{"train.num_steps": "5", "train.log_every": "5",
                   "train.checkpoint_every": "5", "train.profile_steps": "1",
                   "train.logdir": str(tmp_path / "p")})
-    train(cfg, iter(host_batches), occluder_bank=bank, device="cpu")
+    _train_on_batches(cfg, iter(host_batches), occluder_bank=bank, device="cpu")
     assert os.path.exists(tmp_path / "p" / "profile" / "trace.json")
     with pytest.raises(NotImplementedError, match="validate_every"):
         train(_cfg(**{"train.validate_every": "2", "train.num_steps": "4"}), iter([]))
@@ -409,8 +417,8 @@ def test_train_builds_the_background_bank_and_composites(tmp_path, host_batches,
                   "aug.background_prob": "0.0" if how == "off" else "0.7"})
     masked = [b if how == "unmasked" else _masked(b, seed=20 + i)[0]
               for i, b in enumerate(host_batches[:2])]
-    state = train(cfg, iter(masked), occluder_bank=bank, device="cpu",
-                  background_bank=given if how == "given" else None)
+    state = _train_on_batches(cfg, iter(masked), occluder_bank=bank, device="cpu",
+                              background_bank=given if how == "given" else None)
     assert state.step == 2
     assert built == ([(None, 128)] if how == "built" else [])
     n = {"built": 32, "given": 3, "off": 0, "unmasked": 0}[how]
@@ -428,3 +436,107 @@ def test_clip_uses_optax_rule():
                                                  None)[0]
     for a, b in zip(g, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# --- train() from datasets, through the port's host pipeline -----------------
+
+# 4 + 4 rows: torch 2.13's CPU build (oneDNN 3.12) crashes in a convolution's
+# backward at 8 threads on batches of 2, 3 or 6 rows of the tiny model
+FEED = {"train.batch_size": "4", "train.batch_size_2d": "4", "data.workers": "2",
+        "data.host_prep": "python", "train.log_every": "1"}
+
+
+class CountingSynth(JaxSynth):
+    """JaxSynth that counts the examples the loader prepares."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.prepared = 0
+
+    def train_example(self, i):
+        self.prepared += 1
+        return super().train_example(i)
+
+
+def _record_step_batches(monkeypatch):
+    seen = []
+    real = trainer_mod.make_train_step
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+
+        def recorded(state, batch):
+            seen.append({k: v.numpy().copy() for k, v in batch.items()})
+            return step(state, batch)
+
+        return recorded
+
+    monkeypatch.setattr(trainer_mod, "make_train_step", make)
+    return seen
+
+
+def test_train_from_dataset_feeds_the_jax_batches(tmp_path, monkeypatch):
+    """`train(cfg, dataset, dataset2d)` steps on the batches JAX's
+    `mixed_batch_iterator` yields for the same config, with the occluder
+    bank's real size (64) and the root joint from the dataset."""
+    from metro_pose3d_tpu.train.trainer import mixed_batch_iterator as jax_mixed
+
+    seen = _record_step_batches(monkeypatch)
+    over = {**FEED, "train.num_steps": "3", "train.checkpoint_every": "3",
+            "train.logdir": str(tmp_path)}
+    state = train(_cfg(**over), JaxSynth(16), JaxSynth(16, two_d=True, seed=1), device="cpu")
+    assert state.step == 3 and len(seen) == 3
+    want = jax_mixed(apply_overrides(Config(), {**TINY, **over}), JaxSynth(16, port=False),
+                     JaxSynth(16, port=False, two_d=True, seed=1), n_occluders=N_OCC)
+    for got in seen:
+        w = next(want)
+        assert got.keys() == w.keys() and got["is_3d"].tolist() == [1] * 4 + [0] * 4
+        for k in w:
+            np.testing.assert_array_equal(got[k], w[k], err_msg=k)
+    hist = json.load(open(tmp_path / "history.json"))
+    assert [r["step"] for r in hist] == [1, 2, 3]
+    assert all(0.0 <= r["loader_wait_share"] <= 1.0 for r in hist)
+
+
+def test_train_from_dataset_resume_prepares_no_skipped_example(tmp_path):
+    over = {**FEED, "train.num_steps": "6", "train.checkpoint_every": "3",
+            "train.log_every": "3", "train.batch_size_2d": "0"}
+    whole = train(_cfg(**over, **{"train.logdir": str(tmp_path / "a")}), JaxSynth(16),
+                  device="cpu")
+    ds = CountingSynth(16)
+    cfg_b = _cfg(**over, **{"train.logdir": str(tmp_path / "b")})
+    first = train(cfg_b, ds, max_steps=3, device="cpu")
+    assert first.step == 3 and ds.prepared == 3 * 4  # no batch prepared beyond the run
+    ds.prepared = 0
+    resumed = train(cfg_b, ds, device="cpu")
+    assert resumed.step == whole.step == 6
+    assert ds.prepared == 3 * 4  # steps 4..6 only: the skipped batches were not prepared
+    assert _state_equal(resumed.state_dict(), whole.state_dict())
+
+
+@pytest.mark.parametrize("has_masks", [True, False])
+def test_train_from_dataset_asks_the_dataset_for_masks(tmp_path, monkeypatch, has_masks):
+    """`dataset.has_masks` (not the batches) decides the background bank, as
+    the JAX trainer does; with it every batch carries masks and composites."""
+    built, composited = [], []
+    real_get, real_composite = trainer_mod.get_background_bank, device_mod.composite_background
+
+    def get_bank(bg_dir, side):
+        built.append((bg_dir, side))
+        return real_get(bg_dir, side=side)[:3]
+
+    def composite(src, mask, bg_bank, bg_params):
+        composited.append(tuple(bg_bank.shape))
+        return real_composite(src, mask, bg_bank, bg_params)
+
+    monkeypatch.setattr(trainer_mod, "get_background_bank", get_bank)
+    monkeypatch.setattr(device_mod, "composite_background", composite)
+    seen = _record_step_batches(monkeypatch)
+    cfg = _cfg(**{**FEED, "train.num_steps": "2", "train.checkpoint_every": "2",
+                  "train.batch_size_2d": "0", "train.logdir": str(tmp_path)})
+    train(cfg, JaxSynth(8, masks=has_masks), device="cpu")
+    assert built == ([(None, 128)] if has_masks else [])
+    assert composited == ([(3, 128, 128, 3)] * 2 if has_masks else [])
+    assert all(("source_mask" in b) == has_masks for b in seen)
+    if has_masks:
+        assert max(b["bg_params"][:, 1].max() for b in seen) < 3  # indices cover the bank
