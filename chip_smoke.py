@@ -129,6 +129,26 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              12's device-resident step; and 3 steps on a dataset whose
              `has_masks` is true, where `train()` must build the background
              bank and composite at every step
+ 19 dataset  the --test protocol path from annotation files to scores: an
+             H36M-layout shard (subjects 1/5 train, 9/11 test, the JAX
+             package's synthetic shard's cameras and world transform) of
+             1000x1000 frames drawn by the port's renderer and stored as PNG
+             (rows filtered None, Sub, Up, Average, Paeth in turn, so that the
+             port's PNG unfilter runs every case); `get_dataset("h36m")` ->
+             `predict_dataset(Config())` (R50@256 bf16, flip TTA, bone-length
+             rescale, absolute reconstruction, the loader's thread pool) over
+             300 test examples in 3 batches of 128, the last padded ->
+             `save_predictions` -> `eval_h36m`: n_test rows, finite scores,
+             the five canonical actions, K1 (bf16 normalize) and K3 launched
+             once a batch; examples/s and the loader-wait share (informative);
+             the first 8 test examples in float32 (TF32 off) on the card and
+             on the CPU within PARITY_TOL; the int8 leg on the same weights:
+             `calibrate_on_dataset` over 2 batches, `predict_dataset` (52 QK1
+             and 20 QK2 launches a batch), `eval_h36m`, its MPJPE within 5% of
+             the float one, and the first 4 test examples through it in
+             float32 on the card and on the CPU (QK1/QK2's plain twins)
+             within INT8_PARITY_TOL; and whether the CUDA toolkit ships nvJPEG
+             (`nvjpeg.h`, `libnvjpeg.so*`), reported only
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -2020,6 +2040,361 @@ def phase_feed(rng, dev, card, resident_step_ms) -> dict:
     return {**launches, "warp_forms": forms}
 
 
+# --- phase 19: the --test protocol path from annotation files to scores ----------
+
+# the H36M-layout shard: (subject, sequence, frame step) as the JAX package's
+# synthetic shard names them; subjects 1/5 train (every 5th frame), 9/11 test
+# (every 64th); frames drawn at the H36M frame size and stored as PNG
+SHARD_SEQUENCES = (
+    (1, "Walking 1.54138969", 5),
+    (5, "Eating.55011271", 5),
+    (9, "Walking 1.58860488", 64),
+    (9, "WalkDog.54138969", 64),
+    (9, "Greeting.60457274", 64),
+    (11, "TakingPhoto.55011271", 64),
+    (11, "WalkingTogether 1.58860488", 64),
+)
+SHARD_FRAMES = {1: 16, 5: 16, 9: 60, 11: 60}  # frames a sequence, by subject
+SHARD_IMSHAPE = (1000, 1000)
+SHARD_R_BASE = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]])
+DATASET_OVERRIDES = {"eval.scale_recovery": "bone_lengths"}  # on Config(): R50@256 bf16 TTA
+INT8_MPJPE_REL = 0.05  # |int8 - fp| MPJPE bound, tests/test_h36m_shard.py
+# the int8 dump in float32, card against CPU on the first INT8_PARITY_N test
+# examples: key -> (max, mean) abs diff. Float32 roundoff moves values across
+# int8 rounding edges, so the two differ more than the float dumps do. On 8
+# examples (H100, 700 W) they differed by max/mean 1.05/0.237 mm root-relative,
+# 0.075/0.0185 px, 15.1/2.27 mm absolute, where int8 and float32 on the card
+# differed by a mean of 3.36 mm, 0.164 px and 42.2 mm: the bounds sit ~3x
+# above the former and ~4x below the latter
+INT8_PARITY_N = 4
+INT8_PARITY_TOL = {"pose3d_rootrel": (4.0, 0.75), "pose2d_px": (0.3, 0.06),
+                   "pose3d_abs": (50.0, 8.0)}
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """uint8 [H, W, C] (C 1, 3 or 4) as a PNG: row y filtered with filter
+    y % 5 (None, Sub, Up, Average, Paeth in turn, so that a reader meets
+    every one), deflated by zlib."""
+    import struct
+    import zlib
+
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    x = img.reshape(h, w * ch)
+    above = np.zeros_like(x)
+    above[1:] = x[:-1]
+    raw = np.empty((h, 1 + w * ch), np.uint8)
+    raw[:, 0] = np.arange(h) % 5
+    for kind in range(5):  # the rows of each filter together
+        a, b = x[kind::5].astype(np.int16), above[kind::5].astype(np.int16)
+        left, corner = np.zeros_like(a), np.zeros_like(a)
+        left[:, ch:], corner[:, ch:] = a[:, :-ch], b[:, :-ch]
+        if kind == 4:
+            p = left + b - corner
+            pa, pb, pc = np.abs(p - left), np.abs(p - b), np.abs(p - corner)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, b, corner))
+        else:
+            pred = (0, left, b, (left + b) // 2)[kind]
+        raw[kind::5, 1:] = (a - pred).astype(np.uint8)  # modulo 256
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    color = {1: 0, 3: 2, 4: 6}[ch]
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_png_shard(root: str, threads: int = 8) -> dict:
+    """The H36M layout of `scripts/prepare_h36m.py` under `root`/h36m, with
+    PNG frames: the JAX package's synthetic shard (its camera yaws, world
+    transform and sequence names), drawn by the port's renderer. -> counts."""
+    import concurrent.futures
+
+    from metro_pose3d_tpu_torch.data.synthetic import make_example
+
+    base = os.path.join(root, "h36m")
+    rows = {k: [] for k in ("image_paths", "world_coords", "subjects", "frame_indices",
+                            "intrinsics", "rotations", "positions", "distortions")}
+    jobs, transforms = [], []
+    for seq_i, (subj, seq_name, step) in enumerate(SHARD_SEQUENCES):
+        yaw = seq_i * 2.399963
+        c, sn = np.cos(-yaw), np.sin(-yaw)
+        r_wc = SHARD_R_BASE @ np.array([[c, -sn, 0.0], [sn, c, 0.0], [0.0, 0.0, 1.0]])
+        center = np.array([1500.0 * np.cos(yaw), 1500.0 * np.sin(yaw), 1200.0 + 100.0 * seq_i])
+        rel = os.path.join("images", f"S{subj}", seq_name)
+        os.makedirs(os.path.join(base, rel), exist_ok=True)
+        for k in range(SHARD_FRAMES[subj]):
+            path = os.path.join(rel, f"frame_{k * step:06d}.png")
+            jobs.append((len(jobs), path))
+            rows["image_paths"].append(path)
+            rows["subjects"].append(subj)
+            rows["frame_indices"].append(k * step)
+            rows["rotations"].append(r_wc)
+            rows["positions"].append(center)
+            rows["distortions"].append(np.zeros(5))
+            transforms.append((r_wc, center))
+
+    def render(job):
+        index, path = job
+        ex = make_example(index, seed=SEED, imshape=SHARD_IMSHAPE)
+        with open(os.path.join(base, path), "wb") as f:
+            f.write(png_bytes(ex.image))
+        return ex.world_coords, ex.camera.K, (ex.image if index == 0 else None)
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool_:
+        done = list(pool_.map(render, jobs))
+    # make_example's camera sits at the origin without rotation, so its world
+    # coordinates are camera-frame points; re-expressed in the z-up world
+    rows["world_coords"] = [p_cam @ r_wc + center
+                            for (p_cam, _, _), (r_wc, center) in zip(done, transforms)]
+    rows["intrinsics"] = [k for _, k, _ in done]
+    np.savez_compressed(os.path.join(base, "annotations.npz"),
+                        image_paths=np.array(rows["image_paths"]),
+                        world_coords=np.array(rows["world_coords"], np.float32),
+                        subjects=np.array(rows["subjects"], np.int32),
+                        frame_indices=np.array(rows["frame_indices"], np.int32),
+                        intrinsics=np.array(rows["intrinsics"], np.float32),
+                        rotations=np.array(rows["rotations"], np.float32),
+                        positions=np.array(rows["positions"], np.float32),
+                        distortions=np.array(rows["distortions"], np.float32))
+    return {"frames": len(jobs), "first_path": os.path.join(base, jobs[0][1]),
+            "first_image": done[0][2]}
+
+
+def nvjpeg_finding() -> str:
+    """Whether the CUDA toolkit ships nvJPEG: `nvjpeg.h` and `libnvjpeg.so*`
+    under CUDA_HOME, CUDA_PATH or nvcc's prefix (reported, nothing built)."""
+    import glob
+
+    from metro_pose3d_tpu_torch.kernels import build
+
+    roots = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")]
+    try:
+        roots.append(os.path.dirname(os.path.dirname(os.path.realpath(build._nvcc()))))
+    except Exception as e:  # noqa: BLE001 -- reported, not raised: the finding is the output
+        roots.append(None)
+        print(f"[19 dataset] nvcc not found for the nvJPEG search: {e}")
+    roots = sorted({r for r in roots if r and os.path.isdir(r)})
+    headers, libs = [], []
+    for r in roots:
+        headers += glob.glob(os.path.join(r, "include", "nvjpeg.h"))
+        headers += glob.glob(os.path.join(r, "targets", "*", "include", "nvjpeg.h"))
+        for sub in ("lib64", "lib", os.path.join("targets", "*", "lib")):
+            libs += glob.glob(os.path.join(r, sub, "libnvjpeg.so*"))
+    found = "found" if headers and libs else "NOT found"
+    return (f"nvJPEG {found} under {roots}: nvjpeg.h {sorted(set(headers)) or 'none'}, "
+            f"libnvjpeg.so* {sorted(set(libs)) or 'none'}")
+
+
+def phase_dataset(dev, card) -> dict:
+    """19: the --test protocol path: a PNG-framed H36M-layout shard ->
+    `get_dataset("h36m")` -> `predict_dataset` (R50@256 bf16, flip TTA,
+    bone-length rescale, absolute reconstruction, the loader's thread pool)
+    -> `save_predictions` -> `eval_h36m`; the card against the CPU on 8 test
+    examples in float32; the int8 leg (`calibrate_on_dataset` on 2 batches,
+    predict, score, and its float32 card against CPU on INT8_PARITY_N test
+    examples); the nvJPEG finding. -> the K1, K3, QK1 and QK2 launches
+    of its predict runs."""
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+    from metro_pose3d_tpu_torch.data.datasets import get_dataset
+    from metro_pose3d_tpu_torch.evaluation import eval_h36m
+    from metro_pose3d_tpu_torch.evaluation.predict import (
+        compute_mean_bones, predict_dataset, save_predictions,
+    )
+    from metro_pose3d_tpu_torch.init import init_metro_model
+    from metro_pose3d_tpu_torch.models.metro import MetroModel
+    from metro_pose3d_tpu_torch.models.quantize import calibrate_on_dataset
+    from metro_pose3d_tpu_torch.ops import int8, pool, warp
+    from metro_pose3d_tpu_torch.utils import improc
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dataset_")
+    try:
+        t0 = time.perf_counter()
+        shard = write_png_shard(tmp)
+        write_s = time.perf_counter() - t0
+        # the port's PNG reader (zlib + the C unfilter, built here) gives
+        # back the rendered pixels
+        if not np.array_equal(improc.imread(shard["first_path"]), shard["first_image"]):
+            fail("the PNG reader does not give back the pixels written")
+        ds = get_dataset("h36m", tmp)
+        n_test, n_train = ds.n_test, ds.n_train
+        want = {"train": sum(SHARD_FRAMES[s] for s, _, _ in SHARD_SEQUENCES if s in (1, 5)),
+                "test": sum(SHARD_FRAMES[s] for s, _, _ in SHARD_SEQUENCES if s in (9, 11))}
+        if (n_train, n_test) != (want["train"], want["test"]):
+            fail(f"h36m reader: {n_train} train, {n_test} test examples, want {want}")
+        print(f"[19 dataset] shard: {shard['frames']} PNG frames of {SHARD_IMSHAPE[0]}x"
+              f"{SHARD_IMSHAPE[1]} (rows filtered None, Sub, Up, Average, Paeth in turn) "
+              f"written in {write_s:.1f} s; get_dataset('h36m'): {n_train} train, {n_test} "
+              f"test examples; the first frame reads back equal")
+
+        cfg = apply_overrides(Config(), DATASET_OVERRIDES)
+        model = init_metro_model(cfg.model, SEED + 19, dev)
+        t0 = time.perf_counter()
+        mean_bones = compute_mean_bones(ds)
+        bones_s = time.perf_counter() - t0
+        n_batches = -(-n_test // cfg.eval.batch_size)
+
+        def reset():
+            pool.reset_launches()
+            warp.reset_launches()
+            int8.reset_launches()
+
+        def counts():
+            return {"pool": pool.MODE_LAUNCHES["same"], "warp": warp.LAUNCHES,
+                    "warp_forms": dict(warp.KERNEL_LAUNCHES),
+                    "qk1": int8.launches("int8_conv"), "qk2": int8.launches("int8_elementwise")}
+
+        def run(c, m, what, **kw):
+            reset()
+            stats = {}
+            result = predict_dataset(c, m, ds, mean_bones=mean_bones, stats=stats, **kw)
+            path = save_predictions(result, os.path.join(tmp, f"pred_{what}.npz"))
+            return result, path, stats, counts()
+
+        result, path, stats, fp_launches = run(cfg, model, "fp")
+        rows = len(result["pose3d_rootrel"])
+        if rows != n_test or set(result) != {
+                "pose3d_rootrel", "pose3d_abs", "pose2d_px", "gt3d_rootrel", "gt3d_abs",
+                "valid", "actions", "joint_names", "example_offset"}:
+            fail(f"predict_dataset: {rows} rows of {n_test}, keys {sorted(result)}")
+        for key in ("pose3d_rootrel", "pose3d_abs", "pose2d_px"):
+            if not np.isfinite(result[key]).all():
+                fail(f"predict_dataset: {key} is not finite")
+        if fp_launches["warp_forms"].get(("normalize", torch.bfloat16), 0) != n_batches \
+                or fp_launches["warp"] != n_batches or fp_launches["pool"] != n_batches:
+            fail(f"predict_dataset over {n_batches} batches: launches {fp_launches}")
+        check_pool_variants("predict_dataset")
+        scores = eval_h36m.evaluate(path)
+        if not all(np.isfinite(scores[k]) for k in ("mpjpe", "pa_mpjpe", "abs_mpjpe")) \
+                or set(scores["per_action_mpjpe"]) != {
+                    "Walking", "WalkingDog", "Greeting", "Photo", "WalkTogether"}:
+            fail(f"eval_h36m: {scores}")
+        # again, on frames now in the decoded-frame cache and shapes seen once
+        warm = run(cfg, model, "fp_warm")[2]
+
+        def reading(st):
+            return (f"{n_test / st['wall_s']:.1f} examples/s ({st['wall_s']:.2f} s for {n_test}), "
+                    f"waiting for the loader {st['loader_wait_s'] / st['wall_s']:.0%} of it")
+
+        print(f"[19 dataset] predict_dataset(Config(), R50@256 bf16, TTA, bone-length rescale, "
+              f"absolute reconstruction, thread pool of {cfg.data.workers}) -> save_predictions "
+              f"-> eval_h36m: {rows} rows of n_test {n_test} in {n_batches} batches of "
+              f"{cfg.eval.batch_size} (the last padded); MPJPE {scores['mpjpe']:.4f}, PA-MPJPE "
+              f"{scores['pa_mpjpe']:.4f}, absolute {scores['abs_mpjpe']:.4f} mm, per action "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(scores["per_action_mpjpe"].items()))
+              + f"; launches K1 normalize bf16 {fp_launches['warp']}, K3 {fp_launches['pool']} "
+              f"(= batches); compute_mean_bones {bones_s:.2f} s over {n_train} train frames")
+        print(f"[19 dataset] rate, end to end: first pass (every frame decoded from PNG) "
+              f"{reading(stats)}; second pass (frames cached) {reading(warm)}  [{card}]")
+
+        # the card against the CPU, float32, TF32 off, first 8 test examples
+        cfg32 = apply_overrides(cfg, {"model.compute_dtype": "float32",
+                                      "model.matmul_precision": "highest"})
+        cpu32 = MetroModel(cfg32.model).eval()
+        cpu32.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        gpu32 = copy.deepcopy(cpu32).to(dev)
+        got = run(cfg32, gpu32, "gpu32", n_examples=8)[0]
+        want_cpu = run(cfg32, cpu32, "cpu32", n_examples=8)[0]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        worst = {}
+        for key, tol in PARITY_TOL.items():
+            worst[key] = float(np.abs(got[key] - want_cpu[key]).max())
+            if not worst[key] <= tol:
+                fail(f"predict_dataset float32 card vs CPU {key}: {worst[key]} > {tol}")
+        for key in ("gt3d_abs", "valid", "actions"):
+            if not np.array_equal(got[key], want_cpu[key]):
+                fail(f"predict_dataset card vs CPU: {key} differs")
+        print(f"[19 dataset] float32 card vs CPU, first 8 test examples, TF32 off: max abs diff "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tol {PARITY_TOL})")
+        del cpu32, gpu32
+
+        # the int8 leg: the same weights, calibrated on the test split's crops
+        cfg8 = apply_overrides(cfg, {"model.quantize": "int8"})
+        model8 = MetroModel(cfg8.model)
+        missing, unexpected = model8.load_state_dict(
+            {k: v.cpu() for k, v in model.state_dict().items()}, strict=False)
+        if unexpected or not missing or not all(k.endswith(".amax") for k in missing):
+            fail(f"int8 model from the fp weights: missing {missing[:3]}, unexpected {unexpected}")
+        model8 = model8.to(dev).eval()
+        reset()
+        t0 = time.perf_counter()
+        calibrate_on_dataset(cfg8, model8, ds, n_batches=2)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        calib_launches = counts()
+        if (calib_launches["warp"], calib_launches["pool"]) != (2, 2):
+            fail(f"calibrate_on_dataset over 2 batches: launches {calib_launches}")
+        result8, path8, stats8, int8_launches = run(cfg8, model8, "int8")
+        scores8 = eval_h36m.evaluate(path8)
+        delta = scores8["mpjpe"] - scores["mpjpe"]
+        if not abs(delta) < INT8_MPJPE_REL * scores["mpjpe"]:
+            fail(f"int8 MPJPE {scores8['mpjpe']} against fp {scores['mpjpe']}: |delta| "
+                 f">= {INT8_MPJPE_REL} fp")
+        want8 = {"qk1": 52 * n_batches, "qk2": 20 * n_batches, "warp": n_batches,
+                 "pool": n_batches}
+        if any(int8_launches[k] != n for k, n in want8.items()) or len(result8["valid"]) != n_test:
+            fail(f"int8 predict_dataset: launches {int8_launches}, want {want8}; "
+                 f"{len(result8['valid'])} rows")
+        print(f"[19 dataset] int8: calibrate_on_dataset over 2 batches in {calib_s:.2f} s (K1 "
+              f"{calib_launches['warp']}, K3 {calib_launches['pool']} launches), then "
+              f"predict_dataset + eval_h36m: MPJPE {scores8['mpjpe']:.4f} against fp "
+              f"{scores['mpjpe']:.4f} (delta {delta:+.4f} mm, bound {INT8_MPJPE_REL} fp), "
+              f"{reading(stats8)} (frames cached); launches QK1 {int8_launches['qk1']}, "
+              f"QK2 {int8_launches['qk2']}, K1 {int8_launches['warp']}, K3 "
+              f"{int8_launches['pool']}  [{card}]")
+
+        # the calibrated int8 model through predict_dataset in float32: on the
+        # card (QK1, QK2) against the CPU (their plain twins), first test
+        # examples; beside it, how far int8 lies from float32, and the card
+        # against itself with the stem's weights scaled by 1 + 2^-20 (a change
+        # of float32 roundoff's size)
+        n8 = INT8_PARITY_N
+        cfg8_32 = apply_overrides(cfg32, {"model.quantize": "int8"})
+        cpu8 = MetroModel(cfg8_32.model).eval()
+        cpu8.load_state_dict({k: v.cpu() for k, v in model8.state_dict().items()})
+        gpu8 = copy.deepcopy(cpu8).to(dev)
+        got8 = run(cfg8_32, gpu8, "gpu8_32", n_examples=n8)[0]
+        want8_cpu = run(cfg8_32, cpu8, "cpu8_32", n_examples=n8)[0]
+        with torch.no_grad():
+            gpu8.backbone.conv_stem.weight.mul_(1 + 2**-20)
+        nudged = run(cfg8_32, gpu8, "gpu8_nudged", n_examples=n8)[0]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        worst8, mean8, apart, floor = {}, {}, {}, {}
+        for key in INT8_PARITY_TOL:
+            d = np.abs(got8[key] - want8_cpu[key])
+            worst8[key], mean8[key] = float(d.max()), float(d.mean())
+            apart[key] = float(np.abs(got8[key] - got[key][:n8]).mean())
+            floor[key] = float(np.abs(nudged[key] - got8[key]).mean())
+        print(f"[19 dataset] int8 float32 card vs CPU, first {n8} test examples, TF32 off: abs "
+              f"diff max/mean " + ", ".join(f"{k} {worst8[k]:.2e}/{mean8[k]:.2e}" for k in worst8)
+              + f" (tol {INT8_PARITY_TOL}); mean abs diff of int8 against float32 on the card "
+              + ", ".join(f"{k} {v:.2e}" for k, v in apart.items())
+              + "; of the card against itself, stem scaled by 1 + 2^-20, "
+              + ", ".join(f"{k} {v:.2e}" for k, v in floor.items()))
+        for key, (tol_max, tol_mean) in INT8_PARITY_TOL.items():
+            if not (worst8[key] <= tol_max and mean8[key] <= tol_mean):
+                fail(f"int8 predict_dataset float32 card vs CPU {key}: max {worst8[key]}, mean "
+                     f"{mean8[key]}, tol {(tol_max, tol_mean)}")
+        del model, model8, cpu8, gpu8
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[19 dataset] {nvjpeg_finding()}")
+    print(f"[19 dataset] phase time {time.perf_counter() - t_phase:.1f} s")
+    legs = (fp_launches, calib_launches, int8_launches)
+    forms = {}
+    for leg in legs:
+        for form, n in leg["warp_forms"].items():
+            forms[form] = forms.get(form, 0) + n
+    return {**{k: sum(leg[k] for leg in legs) for k in ("pool", "warp", "qk1", "qk2")},
+            "warp_forms": forms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
@@ -2448,6 +2823,9 @@ def main() -> int:
     probe_records = phase_probes(dev, card, rates)  # 16
     int8_records, int8_path = phase_int8(rng, gen, dev, card, rates)  # 17
     feed = phase_feed(rng, dev, card, resident_ms["no background bank"])  # 18
+    dataset = phase_dataset(dev, card)  # 19
+    int8_records[0]["launches"] += dataset["qk1"]
+    int8_records[1]["launches"] += dataset["qk2"]
 
     def kernel(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms, **more):
         return {"name": name, "route": "cuda",
@@ -2469,7 +2847,7 @@ def main() -> int:
     record = {"kernels": [
         kernel("maxpool3x3s2_same", "maxpool3x3s2.cu", pallas_pool,
                launches["pool"] + train_launches["pool"] + fam_launches["d_twofive"]["pool_same"]
-               + int8_path["pool"] + feed["pool"],
+               + int8_path["pool"] + feed["pool"] + dataset["pool"],
                pool_err, pool_ms, pool_plain_ms, pool_bound, None,
                bound_share=pool_bound[0] / pool_ms, two_calls_ms=pool_two_calls_ms,
                ms_scalar=pool_scalar_ms),
@@ -2485,14 +2863,16 @@ def main() -> int:
                                       "ms_scalar") if k in r})
           for (mode, way), r in modes.items()],
         kernel("warp_crop", "warp_crop.cu", "metro_pose3d_tpu/ops/warp_pallas.py:415",
-               launches["warp"] + train_launches["warp"] + int8_path["warp"] + feed["warp"],
+               launches["warp"] + train_launches["warp"] + int8_path["warp"] + feed["warp"]
+               + dataset["warp"],
                warp_max, none["ms"],
                none["plain_ms"],
                (none["bound_ms"], none["bound_by"]), None, call_ms=none["call_ms"],
                bound_share=none["bound_share"],
                forms={f"{e}_{str(d)[6:]}": {**r, "launches": serve_forms[e, d] + train_forms[e, d]
                                                 + int8_path["warp_forms"][e, d]
-                                                + feed["warp_forms"].get((e, d), 0)}
+                                                + feed["warp_forms"].get((e, d), 0)
+                                                + dataset["warp_forms"].get((e, d), 0)}
                       for (e, d), r in warp_forms.items()}),
         kernel("occluder_paste", "occluder_paste.cu", "metro_pose3d_tpu/ops/warp_pallas.py:507",
                train_launches["occluder"] + feed["occluder"], occ_err, occ_ms, occ_plain_ms,

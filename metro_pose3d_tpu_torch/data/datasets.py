@@ -9,8 +9,9 @@ Every dataset exposes the same protocol (duck-typed `PoseDataset`):
 and may set `has_masks = True` when its examples carry foreground masks
 (3DHP green screen), which turns on background replacement in `train()`.
 
-Only the synthetic dataset is ported; the readers of H36M, MPI-INF-3DHP,
-MPII and 3DPW are queue 1 item 5 of ROADMAP.md.
+The readers of H36M, MPI-INF-3DHP, MPII and 3DPW read the layouts of the
+`scripts/prepare_*.py` converters (3DPW: its release layout) and raise
+FileNotFoundError where the files are missing.
 """
 from __future__ import annotations
 
@@ -18,9 +19,6 @@ from typing import Protocol
 
 from metro_pose3d_tpu_torch.geom.joints import JointInfo
 from metro_pose3d_tpu_torch.pipeline.crops import Example
-
-NOT_PORTED = ("h36m", "mpi_inf_3dhp", "mpii", "3dpw")
-
 
 class PoseDataset(Protocol):
     joint_info: JointInfo
@@ -38,7 +36,20 @@ def get_dataset(name: str, data_root: str = "/data", **kwargs) -> PoseDataset:
         from metro_pose3d_tpu_torch.data.synthetic import SyntheticDataset
 
         return SyntheticDataset(**kwargs)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name!r} reader is not ported yet (ROADMAP.md queue 1 item 5)")
+    if name == "h36m":
+        from metro_pose3d_tpu_torch.data.h36m import H36MDataset
+
+        return H36MDataset(data_root, **kwargs)
+    if name == "mpi_inf_3dhp":
+        from metro_pose3d_tpu_torch.data.mpi_inf_3dhp import Mpi3dhpDataset
+
+        return Mpi3dhpDataset(data_root, **kwargs)
+    if name == "mpii":
+        from metro_pose3d_tpu_torch.data.mpii import MpiiDataset
+
+        return MpiiDataset(data_root, **kwargs)
+    if name == "3dpw":
+        from metro_pose3d_tpu_torch.data.tdpw import Tdpw3Dataset
+
+        return Tdpw3Dataset(data_root, **kwargs)
     raise KeyError(f"unknown dataset {name!r}")

@@ -10,12 +10,11 @@ dataset is needed).
 The JAX package draws with cv2; the port draws in numpy, so a GPU host
 needs no cv2. `make_example` takes the same random draws in the same
 order, so the camera, `bbox`, `world_coords` and every later draw are bit for
-bit the JAX package's; only the rasterisation may differ. Thin lines and the
-filled discs are cv2's (Bresenham's 8-connected line and cv2's filled midpoint
-circle, pixel for pixel); a thick line is the quad cv2 fills plus its round
-caps, filled by exact scanline spans, which differs from cv2's fixed-point
-edge stepping on a few edge pixels (tests/test_torch_pipeline.py states the
-share). This module imports neither torch nor cv2.
+bit the JAX package's, and so is the image: lines (thin and thick, clipped
+as cv2 clips them) and filled discs are cv2's pixel for pixel, with cv2's
+fixed-point polygon fill for a thick line's quad
+(tests/test_torch_pipeline.py fuzzes them against cv2). This module imports
+neither torch nor cv2.
 """
 from __future__ import annotations
 
@@ -112,7 +111,8 @@ def draw_disc(img: np.ndarray, center, radius: int, color) -> None:
 
 def _thin_line(img: np.ndarray, p0, p1, color) -> None:
     """cv2's 8-connected line from its left end: step k along the major axis
-    moves the minor one by floor((2 b k + a - 1) / (2 a))."""
+    moves the minor one by floor((2 b k + a - 1) / (2 a)). The end points
+    must lie in the image (`_line8` clips them first)."""
     (x0, y0), (x1, y1) = p0, p1
     if x1 < x0:
         x0, y0, x1, y1 = x1, y1, x0, y0
@@ -128,42 +128,172 @@ def _thin_line(img: np.ndarray, p0, p1, color) -> None:
         _paint(img, y0 + sy * m, x0 + k, color)
 
 
-def _thick_line(img: np.ndarray, p0, p1, color, thickness: int) -> None:
-    """The quad cv2 fills around the segment (half width (t + t % 2) / 2,
-    corners rounded to 1/65536 px as cv2 does) by scanline spans from
-    round(left) to round(right), then its round caps of radius (t + 1) // 2."""
+# cv2's fixed-point drawing: XY_SHIFT fractional bits
+_SHIFT = 16
+_ONE = 1 << _SHIFT
+_HALF = _ONE >> 1
+
+
+def _tdiv(a: int, b: int) -> int:
+    """C's integer division, which truncates toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """cv2's clipLine to [0, w) x [0, h) (Cohen-Sutherland, each step
+    through a double, truncated): the clipped end points, or None where the
+    segment misses the rectangle."""
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return None if c1 | c2 else (x1, y1, x2, y2)
+
+
+def _line8(img: np.ndarray, p0, p1, color) -> None:
+    """cv2's integer LINE_8 line: clipped to the image where an end point
+    leaves it, then `_thin_line` from the clipped ends."""
     h, w = img.shape[:2]
+    if not (0 <= p0[0] < w and 0 <= p1[0] < w and 0 <= p0[1] < h and 0 <= p1[1] < h):
+        clipped = _clip_line(w, h, *p0, *p1)
+        if clipped is None:
+            return
+        p0, p1 = clipped[:2], clipped[2:]
+    _thin_line(img, p0, p1, color)
+
+
+def _line_fixed(img: np.ndarray, p1, p2, color) -> None:
+    """cv2's Line2: an 8-connected line between end points with 16
+    fractional bits, clipped in fixed point, the minor coordinate stepped in
+    fixed point from the first end, rounded by adding half a pixel."""
+    h, w = img.shape[:2]
+    clipped = _clip_line(w << _SHIFT, h << _SHIFT, *p1, *p2)
+    if clipped is None:
+        return
+    x1, y1, x2, y2 = clipped
+    dx, dy = x2 - x1, y2 - y1
+    horizontal = abs(dx) > abs(dy)
+    if (dx if horizontal else dy) < 0:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+        dx, dy = -dx, -dy
+    _paint(img, np.array([(y2 + _HALF) >> _SHIFT]), np.array([(x2 + _HALF) >> _SHIFT]), color)
+    if horizontal:
+        step = _tdiv(dy * _ONE, dx | 1)
+        k = np.arange(((x2 - x1) >> _SHIFT) + 1, dtype=np.int64)
+        _paint(img, (y1 + _HALF + k * step) >> _SHIFT, ((x1 + _HALF) >> _SHIFT) + k, color)
+    else:
+        step = _tdiv(dx * _ONE, dy | 1)
+        k = np.arange(((y2 - y1) >> _SHIFT) + 1, dtype=np.int64)
+        _paint(img, ((y1 + _HALF) >> _SHIFT) + k, (x1 + _HALF + k * step) >> _SHIFT, color)
+
+
+def _fill_convex(img: np.ndarray, v: list, color) -> None:
+    """cv2's FillConvexPoly with LINE_8 and 16 fractional bits: the edges by
+    `_line_fixed`, then from the top vertex down a left and a right edge
+    whose x is stepped in fixed point (dx rounded, C's division), each row
+    filled between the two x's rounded by adding half a pixel. The scan runs
+    a row at a time in cv2; here it runs a stretch of rows between two
+    vertices at a time, with the same integer arithmetic."""
+    h, w = img.shape[:2]
+    n = len(v)
+    for i in range(n):
+        _line_fixed(img, v[i - 1], v[i], color)
+    ys = [p[1] for p in v]
+    xs = [p[0] for p in v]
+    imin = ys.index(min(ys))
+    xmin, xmax = (min(xs) + _HALF) >> _SHIFT, (max(xs) + _HALF) >> _SHIFT
+    ymin, ymax = (min(ys) + _HALF) >> _SHIFT, (max(ys) + _HALF) >> _SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    # per edge: [vertex index, direction, x, dx, end row]
+    edge = [[imin, 1, -_ONE, 0, ymin], [imin, n - 1, -_ONE, 0, ymin]]
+    budget = n  # cv2's `edges`: every vertex is walked past once
+    y = ymin
+    rows, lefts, rights = [], [], []
+    while y <= ymax:
+        for e in edge:
+            if y < e[4]:
+                continue
+            idx0, di = e[0], e[1]
+            idx = (idx0 + di) % n
+            while True:
+                budget -= 1
+                if budget < 0:
+                    break
+                ty = (v[idx][1] + _HALF) >> _SHIFT
+                if ty > y:
+                    xs_, xe = v[idx0][0], v[idx][0]
+                    e[:] = [idx, di, xs_, _tdiv((xe - xs_) * 2 + (ty - y), 2 * (ty - y)), ty]
+                    break
+                idx0, idx = idx, (idx + di) % n
+        if budget < 0:
+            break
+        stop = min(edge[0][4], edge[1][4], ymax + 1)
+        k = np.arange(stop - y, dtype=np.int64)
+        xa, xb = edge[0][2] + k * edge[0][3], edge[1][2] + k * edge[1][3]
+        rows.append(y + k)
+        lefts.append((np.minimum(xa, xb) + _HALF) >> _SHIFT)
+        rights.append((np.maximum(xa, xb) + _HALF) >> _SHIFT)
+        edge[0][2] += (stop - y) * edge[0][3]
+        edge[1][2] += (stop - y) * edge[1][3]
+        y = stop
+    if not rows:
+        return
+    rows, left, right = np.concatenate(rows), np.concatenate(lefts), np.concatenate(rights)
+    keep = (rows >= 0) & (right >= 0) & (left < w)
+    rows, left, right = rows[keep], np.maximum(left[keep], 0), np.minimum(right[keep], w - 1)
+    # the spans' pixels as flat indices: O(painted), not O(box)
+    cnt = right - left + 1
+    cols = np.arange(cnt.sum()) + np.repeat(left - (np.cumsum(cnt) - cnt), cnt)
+    img[np.repeat(rows, cnt), cols] = color
+
+
+def _thick_line(img: np.ndarray, p0, p1, color, thickness: int) -> None:
+    """cv2's thick LINE_8 line: the segment clipped to the image grown by
+    the thickness on every side, the quad around it (half width
+    (t + t % 2) / 2, corners rounded to 1/65536 px) by `_fill_convex`, and
+    round caps of radius (t + 1) // 2 at the clipped ends."""
+    h, w = img.shape[:2]
+    t = thickness
+    clipped = _clip_line(w + 2 * t, h + 2 * t, p0[0] + t, p0[1] + t, p1[0] + t, p1[1] + t)
+    if clipped is None:
+        return
+    p0, p1 = (clipped[0] - t, clipped[1] - t), (clipped[2] - t, clipped[3] - t)
     ddx, ddy = float(p0[0] - p1[0]), float(p1[1] - p0[1])
     r2 = ddx * ddx + ddy * ddy
-    if r2 > 0:
-        r = (thickness + (thickness & 1)) * 32768.0 / np.sqrt(r2)
-        dp = np.array([np.round(ddy * r), np.round(ddx * r)]) / 65536.0
-        a, b = np.asarray(p0, np.float64), np.asarray(p1, np.float64)
-        quad = np.stack([a + dp, a - dp, b - dp, b + dp])
-        y_lo = max(int(np.floor(quad[:, 1].min() + 0.5)), 0)
-        y_hi = min(int(np.floor(quad[:, 1].max() + 0.5)), h - 1)
-        if y_lo <= y_hi:
-            ys = np.arange(y_lo, y_hi + 1, dtype=np.float64)
-            lo = np.full(len(ys), np.inf)
-            hi = np.full(len(ys), -np.inf)
-            for e in range(4):
-                (ax, ay), (bx, by) = quad[e], quad[(e + 1) % 4]
-                near = (ys >= min(ay, by) - 0.5) & (ys <= max(ay, by) + 0.5)
-                if ay == by:
-                    xl, xh = min(ax, bx), max(ax, bx)
-                else:
-                    xl = xh = ax + (bx - ax) * np.clip((ys - ay) / (by - ay), 0.0, 1.0)
-                lo = np.where(near, np.minimum(lo, xl), lo)
-                hi = np.where(near, np.maximum(hi, xh), hi)
-            left = np.maximum(np.floor(lo + 0.5), 0)
-            right = np.minimum(np.floor(hi + 0.5), w - 1)
-            rows = np.isfinite(lo) & (left <= right)
-            left, right = left[rows].astype(np.int64), right[rows].astype(np.int64)
-            # the spans' pixels as flat indices: O(painted), not O(box)
-            n = right - left + 1
-            xs = np.arange(n.sum()) + np.repeat(left - (np.cumsum(n) - n), n)
-            img[np.repeat(ys[rows].astype(np.int64), n), xs] = color
-    cap = (thickness + 1) // 2
+    if r2 > np.finfo(np.float64).eps:
+        r = (t + (t & 1)) * 32768.0 / np.sqrt(r2)
+        # np.round: half to even, as cvRound
+        dpx, dpy = int(np.round(ddy * r)), int(np.round(ddx * r))
+        a = (p0[0] << _SHIFT, p0[1] << _SHIFT)
+        b = (p1[0] << _SHIFT, p1[1] << _SHIFT)
+        _fill_convex(img, [(a[0] + dpx, a[1] + dpy), (a[0] - dpx, a[1] - dpy),
+                           (b[0] - dpx, b[1] - dpy), (b[0] + dpx, b[1] + dpy)], color)
+    cap = (t + 1) // 2
     draw_disc(img, p0, cap, color)
     draw_disc(img, p1, cap, color)
 
@@ -172,7 +302,7 @@ def draw_line(img: np.ndarray, p0, p1, color, thickness: int = 1) -> None:
     """cv2.line(img, p0, p1, color, thickness) with LINE_8, in numpy."""
     p0, p1 = (int(p0[0]), int(p0[1])), (int(p1[0]), int(p1[1]))
     if thickness <= 1:
-        _thin_line(img, p0, p1, color)
+        _line8(img, p0, p1, color)
     else:
         _thick_line(img, p0, p1, color, int(thickness))
 

@@ -247,3 +247,32 @@ def calibrate(model, crop_batches, n_batches: int | None = None):
         raise ValueError("calibration needs at least one batch")
     return model
 
+
+def calibrate_on_dataset(cfg, model, dataset, n_batches: int = 8):
+    """Calibrate `model` (built with `model.quantize="int8"`, on its device)
+    on the dataset's deterministic eval crops, the input distribution it
+    will serve: the test split through the loader, K1's warp with its
+    `normalize` epilogue (`pipeline.device.device_augment`), then
+    `calibrate` over the first `n_batches` batches. Returns the model."""
+    from metro_pose3d_tpu_torch.pipeline.device import device_augment
+    from metro_pose3d_tpu_torch.pipeline.loader import batch_iterator
+
+    device = next(model.parameters()).device
+    it = batch_iterator(
+        dataset.test_example, dataset.n_test, dataset.joint_info,
+        cfg.eval.batch_size, cfg.model.proc_side, cfg.data.source_side,
+        aug_cfg=None, shuffle=False, max_epochs=1, drop_remainder=False,
+        n_workers=cfg.data.workers, box_expansion=cfg.data.test_box_expansion,
+        pool_type=cfg.data.pool_type, host_prep=cfg.data.host_prep,
+    )
+
+    def crops():
+        for _, batch in zip(range(n_batches), it):
+            tiles = {k: torch.from_numpy(batch[k]).to(device)
+                     for k in ("source", "warp_h", "warp_k", "warp_dist")}
+            yield device_augment(tiles, cfg.model.proc_side, train=False, out_dtype=model.dtype)
+
+    try:
+        return calibrate(model, crops())
+    finally:
+        it.close()

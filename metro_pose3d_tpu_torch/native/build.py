@@ -1,12 +1,14 @@
 """Build the port's host runtime with the machine's C compiler and load it
 with ctypes.
 
-Two libraries, each with a plain C interface (no Python.h):
+Three libraries, each with a plain C interface (no Python.h):
 
   croprep   `croprep.c`: the crop-parameter engine and the source-tile copy.
             Needs only libm. The loader's native engine.
   jpegdec   `jpegdec.c`: JPEG decoding against the system libjpeg, built
             only when a JPEG is read, so that crop prep never needs libjpeg.
+  pngdec    `pngdec.c`: PNG row unfiltering (libc only), built when a PNG
+            is read; Python's zlib inflates.
 
 Each is built at first use, never at import time, into
 `build/native/<hash>/` at the root of the checkout, keyed by a hash of its
@@ -38,7 +40,8 @@ NATIVE = Path(__file__).resolve().parent
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 CFLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-ffp-contract=off")
 # name: (source, link flags)
-LIBS = {"croprep": ("croprep.c", ("-lm",)), "jpegdec": ("jpegdec.c", ("-ljpeg",))}
+LIBS = {"croprep": ("croprep.c", ("-lm",)), "jpegdec": ("jpegdec.c", ("-ljpeg",)),
+        "pngdec": ("pngdec.c", ())}
 
 _P, _I, _D, _SZ = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_size_t
 SIGNATURES = {
@@ -55,8 +58,13 @@ SIGNATURES = {
         "metro_jpeg_dims": [ctypes.c_char_p, _SZ, _P, _P],
         # data, len, out, h, w
         "metro_decode_jpeg": [ctypes.c_char_p, _SZ, _P, _I, _I],
+        "metro_decode_jpeg_gray": [ctypes.c_char_p, _SZ, _P, _I, _I],
         # datas, lens, outs, hs, ws, n, threads, status
         "metro_decode_jpeg_batch": [_P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "pngdec": {
+        # raw, raw_len, h, w, bpp, out
+        "metro_png_unfilter": [ctypes.c_char_p, _SZ, _I, _I, _I, _P],
     },
 }
 
@@ -140,4 +148,14 @@ def jpeg_library():
         raise RuntimeError(
             "reading a JPEG needs libjpeg (jpeglib.h and -ljpeg), and the port's JPEG "
             f"decoder (native/jpegdec.c) did not build on this machine:\n{build_error('jpegdec')}")
+    return lib
+
+
+def png_library():
+    """The PNG row unfilter; raises RuntimeError where the C compiler
+    cannot build it."""
+    lib = load("pngdec")
+    if lib is None:
+        raise RuntimeError("reading a PNG needs the port's PNG unfilter (native/pngdec.c), "
+                           f"which did not build on this machine:\n{build_error('pngdec')}")
     return lib

@@ -9,6 +9,9 @@
  *
  *   metro_jpeg_dims(data, len, &h, &w)            -> 0, or 1 if not a JPEG
  *   metro_decode_jpeg(data, len, out, h, w)        -> 0, or 1 if corrupt
+ *   metro_decode_jpeg_gray(data, len, out, h, w)   the same, one channel
+ *       (libjpeg's JCS_GRAYSCALE output: the luma of a colour JPEG, as
+ *       cv2.imread(..., IMREAD_GRAYSCALE) reads it); out is h*w bytes
  *   metro_decode_jpeg_batch(datas, lens, outs, hs, ws, n, threads, status)
  *       decodes n JPEGs on up to `threads` pthreads; status[i] as above.
  */
@@ -56,9 +59,11 @@ int metro_jpeg_dims(const uint8_t *data, size_t len, int *out_h, int *out_w) {
   return 0;
 }
 
-/* Decode one JPEG from memory to RGB8 into `out` (h*w*3 bytes, h and w
- * from metro_jpeg_dims). Pure C: safe on any thread. */
-int metro_decode_jpeg(const uint8_t *data, size_t len, uint8_t *out, int h, int w) {
+/* Decode one JPEG from memory into `out` (h*w*channels bytes, h and w from
+ * metro_jpeg_dims) in the colour space `space`: JCS_RGB (3 channels) or
+ * JCS_GRAYSCALE (1). Pure C: safe on any thread. */
+static int decode(const uint8_t *data, size_t len, uint8_t *out, int h, int w,
+                  J_COLOR_SPACE space, int channels) {
   struct jpeg_decompress_struct cinfo;
   struct error_mgr jerr;
   cinfo.err = jpeg_std_error(&jerr.pub);
@@ -74,15 +79,15 @@ int metro_decode_jpeg(const uint8_t *data, size_t len, uint8_t *out, int h, int 
     jpeg_destroy_decompress(&cinfo);
     return 1;
   }
-  cinfo.out_color_space = JCS_RGB;
+  cinfo.out_color_space = space;
   jpeg_start_decompress(&cinfo);
   if ((int)cinfo.output_width != w || (int)cinfo.output_height != h ||
-      cinfo.output_components != 3) {
+      cinfo.output_components != channels) {
     jpeg_abort_decompress(&cinfo);
     jpeg_destroy_decompress(&cinfo);
     return 1;
   }
-  const size_t stride = (size_t)w * 3;
+  const size_t stride = (size_t)w * (size_t)channels;
   while (cinfo.output_scanline < cinfo.output_height) {
     uint8_t *row = out + (size_t)cinfo.output_scanline * stride;
     jpeg_read_scanlines(&cinfo, &row, 1);
@@ -90,6 +95,14 @@ int metro_decode_jpeg(const uint8_t *data, size_t len, uint8_t *out, int h, int 
   jpeg_finish_decompress(&cinfo);
   jpeg_destroy_decompress(&cinfo);
   return 0;
+}
+
+int metro_decode_jpeg(const uint8_t *data, size_t len, uint8_t *out, int h, int w) {
+  return decode(data, len, out, h, w, JCS_RGB, 3);
+}
+
+int metro_decode_jpeg_gray(const uint8_t *data, size_t len, uint8_t *out, int h, int w) {
+  return decode(data, len, out, h, w, JCS_GRAYSCALE, 1);
 }
 
 /* ------------------------------------------------- threaded batch decode */

@@ -13,6 +13,11 @@ def heatmap_to_image(coords01, proc_side: int):
     return coords01 * proc_side - 0.5
 
 
+def image_to_unit(coords_px, proc_side: int):
+    """Inverse of `heatmap_to_image` (crop pixels -> (0,1) units)."""
+    return (coords_px + 0.5) / proc_side
+
+
 def root_relative(coords, root_index: int):
     """Subtract the root joint: [..., J, C] -> root-relative coords."""
     return coords - coords[..., root_index: root_index + 1, :]

@@ -89,6 +89,11 @@ def bone_lengths(pose: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(pose[..., edges[:, 0], :] - pose[..., edges[:, 1], :], dim=-1)
 
 
+def mean_bone_lengths(poses: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Dataset-mean bone lengths [E] from [N, J, 3] ground-truth poses."""
+    return bone_lengths(poses, edges).mean(dim=0)
+
+
 def rescale_to_bone_lengths(pose_rootrel, edges, ref_lengths):
     """Uniformly rescale the skeleton to the reference bone lengths
     (least-squares scale s = sum(l_ref l) / sum(l^2))."""

@@ -96,8 +96,9 @@ def _check_supported(cfg: Config, total: int) -> None:
         raise NotImplementedError("train.fused_steps > 1 is not ported (measured null)")
     if cfg.train.validate_every and cfg.train.validate_every <= total:
         raise NotImplementedError(
-            "in-loop validation (train.validate_every > 0) needs predict_dataset, which "
-            "is not ported yet; set train.validate_every=0")
+            "in-loop validation (train.validate_every > 0) is not wired into the port's "
+            "loop yet (ROADMAP.md queue 1 item 6; evaluation/predict.py::predict_dataset "
+            "is ported); set train.validate_every=0")
 
 
 def train(cfg: Config, dataset, dataset2d=None, max_steps: Optional[int] = None,

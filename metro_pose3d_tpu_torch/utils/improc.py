@@ -1,18 +1,30 @@
-"""Host image processing: JPEG read, a decoded-frame cache, source-tile copy
-(`metro_pose3d_tpu/utils/improc.py`; the port keeps its own copy).
+"""Host image processing: JPEG and PNG reads, a decoded-frame cache,
+source-tile copy (`metro_pose3d_tpu/utils/improc.py`; the port keeps its own
+copy).
 
 JPEG decoding goes through the port's C decoder against the system libjpeg
 (`native/jpegdec.c`); where libjpeg is missing it raises and says so: there
-is no cv2 fallback. Other image formats go through cv2, imported inside
-`imread`. The tile copy runs in C (`native/croprep.c`) where the compiler
-builds it, in numpy otherwise; both give the same bytes. Everything returns
-RGB uint8 numpy arrays. This module imports neither torch nor cv2.
+is no cv2 fallback. PNGs are read without cv2: Python's zlib inflates and
+`native/pngdec.c` undoes the row filters. It takes 8-bit, non-interlaced
+gray, RGB and RGBA files, and gives the pixels `cv2.imread` gives: gray
+replicated, alpha dropped. Other PNGs (16-bit, palette, gray + alpha,
+interlaced) raise, naming the file. Other image formats go
+through cv2, imported inside `imread`. `imread_gray` reads an image as
+`cv2.imread(path, cv2.IMREAD_GRAYSCALE)` does, for masks: a colour PNG
+becomes libpng's luma. Files that are damaged raise `CorruptImage`, where
+cv2.imread gives None; files of a kind the port does not read raise a plain
+ValueError. The tile
+copy runs in C (`native/croprep.c`) where the compiler builds it, in numpy
+otherwise; both give the same bytes. Everything returns uint8 numpy arrays,
+RGB where they have colour. This module imports neither torch nor cv2.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import struct
 import threading
+import zlib
 
 import numpy as np
 
@@ -24,22 +36,103 @@ def have_native() -> bool:
     return native.crop_library() is not None
 
 
+class CorruptImage(ValueError):
+    """A damaged image file: one that cv2.imread would give None for."""
+
+
 def _jpeg_dims(lib, data: bytes) -> tuple:
     h, w = ctypes.c_int(), ctypes.c_int()
     if lib.metro_jpeg_dims(data, len(data), ctypes.byref(h), ctypes.byref(w)):
-        raise ValueError("corrupt or unsupported JPEG")
+        raise CorruptImage("corrupt or unsupported JPEG")
     return h.value, w.value
 
 
-def decode_jpeg_bytes(data: bytes) -> np.ndarray:
-    """JPEG bytes -> RGB uint8 [H, W, 3]; ValueError if libjpeg refuses them."""
+def decode_jpeg_bytes(data: bytes, gray: bool = False) -> np.ndarray:
+    """JPEG bytes -> RGB uint8 [H, W, 3], or with `gray` the luma [H, W] as
+    libjpeg gives it (cv2's IMREAD_GRAYSCALE); CorruptImage if libjpeg
+    refuses them."""
     lib = native.jpeg_library()
     data = bytes(data)
     h, w = _jpeg_dims(lib, data)
-    out = np.empty((h, w, 3), np.uint8)
-    if lib.metro_decode_jpeg(data, len(data), out.ctypes.data, h, w):
-        raise ValueError("corrupt or unsupported JPEG")
+    out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
+    decode = lib.metro_decode_jpeg_gray if gray else lib.metro_decode_jpeg
+    if decode(data, len(data), out.ctypes.data, h, w):
+        raise CorruptImage("corrupt or unsupported JPEG")
     return out
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# PNG colour type -> samples a pixel (0 gray, 2 RGB, 6 RGBA); 3 (palette) and
+# 4 (gray + alpha) are not read
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+# libpng's rgb_to_gray weights for cv2's (0.299, 0.587), at 15 bits
+_LUMA15 = np.array([9797, 19234, 3737], np.uint32)
+# chunks after which libpng's rgb_to_gray works through gamma tables
+_PNG_GAMMA_CHUNKS = (b"sRGB", b"iCCP")
+_PNG_UNIT_GAMMA = struct.pack(">I", 100000)
+
+
+def decode_png_bytes(data: bytes, gray: bool = False, name: str = "PNG") -> np.ndarray:
+    """PNG bytes -> RGB uint8 [H, W, 3] (gray replicated, alpha dropped, as
+    cv2.imread's IMREAD_COLOR), or with `gray` uint8 [H, W] as
+    IMREAD_GRAYSCALE gives it (a colour PNG's luma as libpng computes it).
+    Errors name `name`: CorruptImage for a damaged file (truncated, a bad
+    CRC, length or row filter, corrupt data); ValueError for one it does not
+    read (not a PNG, a bit depth other than 8, a palette, gray + alpha,
+    interlacing, or colour with `gray` under a gamma chunk)."""
+    data = bytes(data)
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{name}: not a PNG")
+    header, idat, pos, gamma = None, [], 8, False
+    while True:
+        if pos + 8 > len(data):
+            raise CorruptImage(f"{name}: truncated PNG (no IEND chunk)")
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise CorruptImage(f"{name}: truncated PNG chunk {kind!r}")
+        if zlib.crc32(kind + body) != int.from_bytes(crc, "big"):
+            raise CorruptImage(f"{name}: bad CRC in PNG chunk {kind!r}")
+        pos += 12 + length
+        if kind == b"IHDR":
+            if length != 13:
+                raise CorruptImage(f"{name}: a PNG header of {length} bytes")
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind in _PNG_GAMMA_CHUNKS or (kind == b"gAMA" and body != _PNG_UNIT_GAMMA):
+            gamma = True
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise CorruptImage(f"{name}: PNG without IHDR")
+    w, h, depth, color, compression, filtering, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or compression or filtering or interlace:
+        what = ("a bit depth of %d" % depth if depth != 8
+                else "a palette" if color == 3
+                else "Adam7 interlacing" if interlace
+                else f"colour type {color}, compression {compression}, filter {filtering}")
+        raise ValueError(f"{name}: PNG with {what}; the port reads 8-bit, non-interlaced "
+                         "gray, RGB and RGBA PNGs")
+    ch = _PNG_CHANNELS[color]
+    if gray and ch > 1 and gamma:
+        raise ValueError(f"{name}: a colour PNG with a gamma chunk read as gray; the port "
+                         "reads colour PNGs as gray only without gAMA, sRGB or iCCP")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise CorruptImage(f"{name}: corrupt PNG data ({e})") from None
+    if len(raw) != h * (1 + w * ch):
+        raise CorruptImage(f"{name}: {len(raw)} bytes of PNG data for {h}x{w}x{ch}")
+    out = np.empty((h, w, ch), np.uint8)
+    if native.png_library().metro_png_unfilter(raw, len(raw), h, w, ch, out.ctypes.data):
+        raise CorruptImage(f"{name}: a PNG row filter above 4")
+    if ch == 1:
+        return out.reshape(h, w) if gray else np.repeat(out, 3, axis=-1)
+    if gray:
+        return ((out[..., :3] @ _LUMA15) >> 15).astype(np.uint8)
+    return out if ch == 3 else np.ascontiguousarray(out[..., :3])
 
 
 def decode_jpeg_batch(items, threads: int = 4) -> list:
@@ -70,18 +163,39 @@ def decode_jpeg_batch(items, threads: int = 4) -> list:
     return outs
 
 
+def _read_bytes(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
 def imread(path: str) -> np.ndarray:
-    """Image file -> RGB uint8; JPEG through the C decoder, other formats
-    through cv2 (imported here, only for them)."""
-    if str(path).lower().endswith((".jpg", ".jpeg")):
-        with open(path, "rb") as f:
-            return decode_jpeg_bytes(f.read())
+    """Image file -> RGB uint8; JPEG through the C decoder, PNG through
+    `decode_png_bytes`, other formats through cv2 (imported here, only for
+    them)."""
+    lower = str(path).lower()
+    if lower.endswith((".jpg", ".jpeg")):
+        return decode_jpeg_bytes(_read_bytes(path))
+    if lower.endswith(".png"):
+        return decode_png_bytes(_read_bytes(path), name=str(path))
     import cv2
 
     img = cv2.imread(str(path))
     if img is None:
         raise FileNotFoundError(path)
     return np.ascontiguousarray(img[..., ::-1])
+
+
+def imread_gray(path: str) -> np.ndarray:
+    """Image file (a mask) -> uint8 [H, W], as
+    `cv2.imread(path, cv2.IMREAD_GRAYSCALE)` gives it: a JPEG's luma through
+    the C decoder, a PNG through `decode_png_bytes`; ValueError for other
+    formats."""
+    lower = str(path).lower()
+    if lower.endswith((".jpg", ".jpeg")):
+        return decode_jpeg_bytes(_read_bytes(path), gray=True)
+    if lower.endswith(".png"):
+        return decode_png_bytes(_read_bytes(path), gray=True, name=str(path))
+    raise ValueError(f"{path}: the port reads masks from JPEG and PNG files only")
 
 
 class _FrameCache:

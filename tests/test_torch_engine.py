@@ -171,7 +171,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 33  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 64  # every module was imported, the readers too
 
 
 def test_entry_runs_flagship_on_cpu():
