@@ -15,7 +15,8 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
   3 k3       stem max pool kernel == its plain version, bit for bit (NaN
              where it has NaN), in both variants: 16-byte vectors and scalar
   4 k1       crop warp kernel in each form (epilogue none, unit, normalize
-             in float32 and bf16), crop and frame mode, against the plain
+             and normalize_div in float32 and bf16), crop and frame mode,
+             against the plain
              chain (0.05 in [0,255], scaled to the form's units; bf16 plus
              one bf16 ulp), and the fused form bit for bit equal to the
              unfused kernel output through the plain epilogue
@@ -149,6 +150,24 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              float32 on the card and on the CPU (QK1/QK2's plain twins)
              within INT8_PARITY_TOL; and whether the CUDA toolkit ships nvJPEG
              (`nvjpeg.h`, `libnvjpeg.so*`), reported only
+ 20 multi    the multi-person frame path and the command line:
+             `MultiPersonEstimator` (Config(): R50@256 bf16, TTA, frame mode,
+             the default buckets) on a synthetic 720p sequence of 48 frames of
+             6 people: `warmup(8)`, then `estimate_stream(depth=2)` and an
+             `estimate_frame` loop, frames/s and persons/s of each, their
+             outputs equal (1e-3 mm/px), 48 K1 `normalize_div` bf16 and 48 K3
+             launches a pass; one frame of 3 in float32 (TF32 off) on the card
+             and on the CPU within PARITY_TOL (pose2d_px times the crops'
+             zoom), and frame mode against tile mode with tiles that cover the
+             ROI (0.5 mm, 0.1 px); int8 (calibrated as in phase 17) over 8
+             frames, 52 QK1 and 20 QK2 launches a frame, its distance from
+             bf16; `predict_multiperson_dataset` over 16 frames held in memory
+             -> `eval_3dpw`; `main --train` (20 steps of the synthetic dataset,
+             validation every 10: two val_mpjpe rows and the best checkpoint at
+             their minimum, read back), `main --test` on the trained checkpoint
+             and `--eval-h36m` (its printed scores equal `eval_h36m`'s),
+             `--export` and `load_exported` (the checkpoint's weights bit for
+             bit, one batch predicted)
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -182,7 +201,9 @@ once and prints no result. It imports no jax.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import shutil
@@ -313,7 +334,7 @@ def warp_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 WARP_FORM_NONE = ("none", torch.float32)
 # [0,255] -> the form's units; a bf16 form also rounds once more to bf16
-WARP_FORM_SCALE = {"none": 1.0, "unit": 1 / 255, "normalize": 2 / 255}
+WARP_FORM_SCALE = {"none": 1.0, "unit": 1 / 255, "normalize": 2 / 255, "normalize_div": 2 / 255}
 
 
 def fmt_forms(values: dict, spec: str = ".2e") -> str:
@@ -2395,6 +2416,350 @@ def phase_dataset(dev, card) -> dict:
             "warp_forms": forms}
 
 
+# --- phase 20: the multi-person frame path and the command line ----------------
+
+MP_PERSONS, MP_FRAMES, MP_IMSHAPE = 6, 48, (720, 1280)
+MP_BUCKET = 8  # the default buckets' bucket for 6 persons
+MP_PASSES = 3  # stream and loop passes, in turns
+MP_EQUAL_TOL = 1e-3  # the stream against the loop: mm and px (equal bits expected)
+# frame mode against tile mode with tiles that cover the ROI (no decimation):
+# tests/test_multiperson.py::TestFrameMode's bounds, mm and px
+FRAME_TILE_TOL = {"pose3d_rootrel": 0.5, "pose2d_px": 0.1}
+MP_CLI_STEPS, MP_CLI_VALIDATE = 20, 10
+
+
+class FrameSequence:
+    """Frames held in memory as a multi-person test split: the frame
+    protocol of the 3DPW reader, which `predict_multiperson_dataset` reads."""
+
+    root_joint = "pelv"
+
+    def __init__(self, frames):
+        from metro_pose3d_tpu_torch.geom.joints import H36M_17
+
+        self.frames, self.joint_info = frames, H36M_17
+        self.n_test_frames = len(frames)
+
+    def test_frame(self, i):
+        image, boxes, camera, world = self.frames[i]
+        return image, boxes, camera, world, "synthetic_sequence"
+
+
+def crop_zoom(boxes, camera, cfg) -> np.ndarray:
+    """Frame pixels per crop pixel of each box's crop."""
+    from metro_pose3d_tpu_torch.pipeline.crops import prepare_inference_crop_params
+
+    return np.array([camera.K[0, 0] / prepare_inference_crop_params(
+        b, camera, cfg.model.proc_side, cfg.data.test_box_expansion)["intrinsics"][0, 0]
+        for b in boxes])
+
+
+def phase_multiperson(rng, dev, card) -> dict:
+    """20: the multi-person frame path (`MultiPersonEstimator`, Config():
+    R50@256 bf16, TTA, frame mode, the default buckets) on a synthetic 720p
+    sequence of 6 people: warmup, `estimate_stream(depth=2)` against an
+    `estimate_frame` loop (frames/s, equal outputs, K1 normalize_div and K3
+    launches); float32 card against CPU on one frame of 3 within PARITY_TOL;
+    frame mode against tile mode; int8; `predict_multiperson_dataset` ->
+    `eval_3dpw`; and the command line: --train with in-loop validation, --test,
+    --eval-h36m, --export and `load_exported`. -> the kernels' launches."""
+    from metro_pose3d_tpu_torch import main as cli
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides, parse_cli
+    from metro_pose3d_tpu_torch.data.synthetic import (
+        make_multiperson_frame, make_multiperson_sequence,
+    )
+    from metro_pose3d_tpu_torch.evaluation import eval_3dpw, eval_h36m
+    from metro_pose3d_tpu_torch.evaluation.predict import (
+        predict_multiperson_dataset, save_predictions,
+    )
+    from metro_pose3d_tpu_torch.export import load_exported
+    from metro_pose3d_tpu_torch.geom.joints import H36M_17
+    from metro_pose3d_tpu_torch.init import init_metro_model
+    from metro_pose3d_tpu_torch.models.metro import MetroModel
+    from metro_pose3d_tpu_torch.models.quantize import calibrate
+    from metro_pose3d_tpu_torch.multiperson import MultiPersonEstimator
+    from metro_pose3d_tpu_torch.ops import int8, occlusion, pool, warp
+    from metro_pose3d_tpu_torch.ops.color import normalize
+    from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
+    from metro_pose3d_tpu_torch.train.state import create_train_state
+
+    t_phase = time.perf_counter()
+    frame_form = ("normalize_div", torch.bfloat16)
+    legs = []
+
+    def reset():
+        pool.reset_launches()
+        warp.reset_launches()
+        int8.reset_launches()
+        occlusion.LAUNCHES = 0
+
+    def counts(keep=True):
+        c = {"pool": pool.MODE_LAUNCHES["same"], "pool_bwd": pool.MODE_BWD_LAUNCHES["same"],
+             "warp": warp.LAUNCHES, "warp_forms": dict(warp.KERNEL_LAUNCHES),
+             "occluder": occlusion.LAUNCHES, "qk1": int8.launches("int8_conv"),
+             "qk2": int8.launches("int8_elementwise")}
+        if keep:
+            legs.append(c)
+        return c
+
+    t0 = time.perf_counter()
+    frames = list(make_multiperson_sequence(MP_PERSONS, MP_FRAMES, seed=SEED,
+                                            imshape=MP_IMSHAPE))
+    requests = [(img, boxes, cam) for img, boxes, cam, _ in frames]
+    render_s = time.perf_counter() - t0
+    cfg = Config()
+    model = init_metro_model(cfg.model, SEED + 20, dev)
+    est = MultiPersonEstimator(cfg, model, H36M_17)
+    reset()
+    t0 = time.perf_counter()
+    built = est.warmup(8, MP_IMSHAPE)
+    warm_s = time.perf_counter() - t0
+    counts()
+    if built != 4:
+        fail(f"warmup(8) ran {built} buckets, want 4 (1, 2, 4, 8)")
+    print(f"[20 multi] {MP_FRAMES} synthetic {MP_IMSHAPE[1]}x{MP_IMSHAPE[0]} frames of "
+          f"{MP_PERSONS} people rendered in {render_s:.2f} s; warmup(8) ran buckets 1, 2, 4, 8 "
+          f"in {warm_s:.2f} s")
+
+    def serve(what, run, e=est, n=MP_FRAMES):
+        """Time run(e) over n frames; also the host seconds spent in
+        `_dispatch` and `_collect`, and the pinned host allocations made."""
+        spent = {"_dispatch": 0.0, "_collect": 0.0}
+
+        def timed(name):
+            method = getattr(e, name)
+
+            def call(*args):
+                t0 = time.perf_counter()
+                try:
+                    return method(*args)
+                finally:
+                    spent[name] += time.perf_counter() - t0
+            return call
+
+        for name in spent:
+            setattr(e, name, timed(name))
+        host_stats = getattr(torch.cuda, "host_memory_stats", dict)
+        allocs = host_stats().get("num_host_alloc", -1)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            outs = run(e)
+        finally:
+            sec = time.perf_counter() - t0
+            for name in spent:
+                delattr(e, name)  # the class's methods again
+        c = counts()
+        persons = sum(len(o["pose3d_abs"]) for o in outs)
+        print(f"[20 multi] {what}: {n / sec:.2f} frames/s, {persons / sec:.1f} persons/s "
+              f"({sec:.3f} s for {n} frames; a frame {1e3 * spent['_dispatch'] / n:.2f} ms in "
+              f"_dispatch, {1e3 * spent['_collect'] / n:.2f} ms in _collect; pinned host "
+              f"allocations {host_stats().get('num_host_alloc', -1) - allocs})  [{card}]")
+        return outs, n / sec, c
+
+    runs = {"estimate_stream(depth=2)": lambda e: list(e.estimate_stream(iter(requests),
+                                                                         depth=2)),
+            "estimate_frame loop": lambda e: [e.estimate_frame(*r) for r in requests]}
+    outs, fps = {}, {what: [] for what in runs}
+    for rep in range(MP_PASSES):  # in turns: the host clock drifts from pass to pass
+        for what, run in runs.items():
+            o, rate, c = serve(f"{what}, pass {rep + 1}", run)
+            outs.setdefault(what, o)
+            fps[what].append(rate)
+            forms = {f: n for f, n in c["warp_forms"].items() if n}
+            if forms != {frame_form: MP_FRAMES} or c["pool"] != MP_FRAMES:
+                fail(f"multi-person {what}: K1 launches by form {forms}, K3 {c['pool']}; want "
+                     f"{MP_FRAMES} of {frame_form} and {MP_FRAMES} of K3 (one a frame at "
+                     f"bucket {MP_BUCKET})")
+    stream, loop = outs.values()
+    check_pool_variants("multi-person serving")
+    worst, same = {}, True
+    for a, b in zip(stream, loop):
+        for key in a:
+            if a[key].shape != (MP_PERSONS, 17, 2 if key == "pose2d_px" else 3) \
+                    or not np.isfinite(a[key]).all():
+                fail(f"multi-person {key}: shape {a[key].shape} or not finite")
+            same &= np.array_equal(a[key], b[key])
+            worst[key] = max(worst.get(key, 0.0), float(np.abs(a[key] - b[key]).max()))
+    if max(worst.values()) > MP_EQUAL_TOL:
+        fail(f"estimate_stream against the estimate_frame loop: {worst} > {MP_EQUAL_TOL}")
+    # where a frame's device time goes (informative)
+    print(profile_breakdown(lambda: est.estimate_frame(*requests[0]), steps=8,
+                            label="[20 multi] profiler, estimate_frame of 6 people"))
+    side = cfg.model.proc_side
+    x = torch.zeros((2 * MP_BUCKET, side, side, 3), dtype=model.dtype, device=dev)
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            model(x)
+        launched = (time.perf_counter() - t0) / 10
+        torch.cuda.synchronize()
+        drained = (time.perf_counter() - t0) / 10
+    print(f"[20 multi] the backbone and heads alone at B={2 * MP_BUCKET}: {1e3 * launched:.2f} "
+          f"host ms a call to launch, {1e3 * drained:.2f} ms a call with the drain  [{card}]")
+    med = {what: float(np.median(r)) for what, r in fps.items()}
+    gain = ", ".join(f"{a / b:.2f}" for a, b in zip(*fps.values()))
+    print(f"[20 multi] median of {MP_PASSES} passes: stream {med['estimate_stream(depth=2)']:.2f}, "
+          f"loop {med['estimate_frame loop']:.2f} frames/s; the stream over the loop by pass: "
+          f"{gain}x; outputs "
+          + ("equal bit for bit" if same else f"differ by {worst}")
+          + f"; launches a pass: K1 {frame_form[0]} bf16 {c['warp']}, K3 {c['pool']} "
+          f"(bucket {MP_BUCKET}, {2 * MP_BUCKET} crops with TTA)")
+
+    # float32 on the card (TF32 off) against the CPU, one frame of 3 people;
+    # then frame mode against tile mode with tiles that cover the ROI
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = apply_overrides(Config(), {"model.compute_dtype": "float32"})
+    cpu32 = MetroModel(cfg32.model).eval()
+    cpu32.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gpu32 = copy.deepcopy(cpu32).to(dev)
+    img, boxes, cam, _ = make_multiperson_frame(3, seed=SEED + 20, imshape=MP_IMSHAPE)
+    got, want = (MultiPersonEstimator(cfg32, m, H36M_17, buckets=(4,)).estimate_frame(
+        img, boxes, cam) for m in (gpu32, cpu32))
+    zoom = crop_zoom(boxes, cam, cfg32)
+    diffs = {}
+    for key, tol in PARITY_TOL.items():
+        d = np.abs(got[key] - want[key])
+        if key == "pose2d_px":  # frame pixels: the crop-pixel bound times each crop's zoom
+            tol = tol * zoom[:, None, None]
+        diffs[key] = float(d.max())
+        if not np.all(d <= tol):
+            fail(f"multi-person float32 card vs CPU {key}: {diffs[key]} > {np.max(tol)}")
+    cfg_tiles = apply_overrides(cfg32, {"data.source_side": str(MP_IMSHAPE[1])})
+    tiles = MultiPersonEstimator(cfg_tiles, gpu32, H36M_17, buckets=(4,),
+                                 frame_mode=False).estimate_frame(img, boxes, cam)
+    ft = {k: float(np.abs(tiles[k] - got[k]).max()) for k in FRAME_TILE_TOL}
+    if any(ft[k] > tol for k, tol in FRAME_TILE_TOL.items()):
+        fail(f"multi-person frame mode against tile mode: {ft} (tol {FRAME_TILE_TOL})")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"[20 multi] float32 card vs CPU, one frame of 3 people, TF32 off: max abs diff "
+          + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items())
+          + f" (tol {PARITY_TOL}, pose2d_px times the crops' zoom {np.round(zoom, 2).tolist()}); "
+          f"frame mode against tile mode ({MP_IMSHAPE[1]}^2 tiles): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in ft.items()) + f" (tol {FRAME_TILE_TOL})")
+    del cpu32, gpu32
+
+    # int8: the same weights, calibrated as phase 17 calibrates, 8 frames
+    cfg8 = apply_overrides(Config(), {"model.quantize": "int8"})
+    model8 = MetroModel(cfg8.model)
+    missing, unexpected = model8.load_state_dict(
+        {k: v.cpu() for k, v in model.state_dict().items()}, strict=False)
+    if unexpected or not all(k.endswith(".amax") for k in missing):
+        fail(f"int8 model from the fp weights: missing {missing[:3]}, unexpected {unexpected}")
+    model8 = model8.to(dev).eval()
+    calibrate(model8, [normalize(torch.from_numpy(
+        rng.randint(0, 256, (BATCH, side, side, 3)).astype(np.uint8)).to(dev).float() / 255.0)
+        for _ in range(3)])
+    est8 = MultiPersonEstimator(cfg8, model8, H36M_17)
+    est8.warmup(8, MP_IMSHAPE)
+    n8 = 8
+    out8, fps8, c8 = serve("int8 estimate_stream(depth=2)",
+                           lambda e: list(e.estimate_stream(iter(requests[:n8]), depth=2)),
+                           e=est8, n=n8)
+    if (c8["qk1"], c8["qk2"], c8["warp_forms"][frame_form], c8["pool"]) != (
+            52 * n8, 20 * n8, n8, n8):
+        fail(f"int8 multi-person over {n8} frames: launches {c8}")
+    apart = {k: float(np.mean([np.abs(a[k] - b[k]).mean() for a, b in zip(out8, loop)]))
+             for k in out8[0]}
+    print(f"[20 multi] int8 over {n8} frames: launches QK1 {c8['qk1']}, QK2 {c8['qk2']} "
+          f"(52 and 20 a forward), K1 {c8['warp']}, K3 {c8['pool']}; mean abs diff from bf16 "
+          + ", ".join(f"{k} {v:.2f}" for k, v in apart.items()))
+    del model8, est8
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multiperson_")
+    try:
+        # the dataset path: predict_multiperson_dataset -> the eval_3dpw dump
+        n_ds = 16
+        reset()
+        t0 = time.perf_counter()
+        result = predict_multiperson_dataset(cfg, model, FrameSequence(frames[:n_ds]))
+        ds_s = time.perf_counter() - t0
+        c = counts()
+        scores = eval_3dpw.evaluate_3dpw(save_predictions(result, os.path.join(tmp, "mp.npz")))
+        if len(result["pose3d"]) != n_ds * MP_PERSONS or not np.isfinite(
+                result["pose3d_abs"]).all() or c["warp_forms"][frame_form] != n_ds:
+            fail(f"predict_multiperson_dataset: {len(result['pose3d'])} rows, launches {c}")
+        print(f"[20 multi] predict_multiperson_dataset over {n_ds} frames -> eval_3dpw: "
+              f"{scores['n_instances']} instances, MPJPE {scores['mpjpe']:.2f}, PA-MPJPE "
+              f"{scores['pa_mpjpe']:.2f}, absolute {scores['abs_mpjpe']:.2f} mm (random weights) "
+              f"in {ds_s:.2f} s")
+
+        # the command line at full width: train with in-loop validation, test
+        # on the trained checkpoint, score, export and load the bundle
+        logdir = os.path.join(tmp, "cli")
+        common = ["--data.dataset=synthetic", "--data.synthetic_n_test=64",
+                  f"--train.logdir={logdir}"]
+        train_args = ["--train", *common, f"--train.num_steps={MP_CLI_STEPS}",
+                      f"--train.validate_every={MP_CLI_VALIDATE}", "--train.validate_batches=1",
+                      f"--train.log_every={MP_CLI_VALIDATE}",
+                      f"--train.checkpoint_every={MP_CLI_VALIDATE}"]
+        reset()
+        t0 = time.perf_counter()
+        if cli.main(train_args) != 0:
+            fail("main --train returned non-zero")
+        train_s = time.perf_counter() - t0
+        counts()
+        with open(os.path.join(logdir, "history.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        vals = [r for r in rows if "val_mpjpe" in r]
+        if [r["step"] for r in vals] != [MP_CLI_VALIDATE, MP_CLI_STEPS] or not all(
+                np.isfinite(r["val_mpjpe"]) for r in vals):
+            fail(f"main --train: validation rows {vals}")
+        ckpt = Checkpointer(logdir)
+        _, best_step = ckpt.restore_best(create_train_state(parse_cli(train_args)[0], dev))
+        low = min(vals, key=lambda r: r["val_mpjpe"])
+        if (best_step, ckpt.best_metric()) != (low["step"], low["val_mpjpe"]):
+            fail(f"best checkpoint {best_step} ({ckpt.best_metric()}) is not the validation "
+                 f"minimum {low}")
+        pred = os.path.join(tmp, "cli_pred.npz")
+        reset()
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):  # the scorer's JSON table
+            rcs = (cli.main(["--test", *common, f"--eval.pred_path={pred}"]),
+                   cli.main(["--eval-h36m", f"--eval.pred_path={pred}"]))
+        test_s = time.perf_counter() - t0
+        c = counts()
+        text = printed.getvalue()
+        h36m = json.loads(text[text.index("{"):])
+        if rcs != (0, 0) or h36m != json.loads(json.dumps(eval_h36m.evaluate(pred))):
+            fail(f"main --test / --eval-h36m: rcs {rcs}, printed {text[:300]}")
+        if c["warp_forms"][("normalize", torch.bfloat16)] != 1 or not np.isfinite(h36m["mpjpe"]):
+            fail(f"main --test: launches {c}, MPJPE {h36m['mpjpe']}")
+        bundle = os.path.join(tmp, "bundle")
+        if cli.main([f"--export={bundle}", *common]) != 0:
+            fail("main --export returned non-zero")
+        cfg_b, model_b, fn = load_exported(bundle, device=dev)
+        want_sd = cli._load_model(parse_cli(common)[0], None, dev).state_dict()
+        if cfg_b != parse_cli(common)[0] or any(
+                not torch.equal(v, want_sd[k]) for k, v in model_b.state_dict().items()):
+            fail("the exported bundle does not hold the checkpoint's config and weights")
+        crops = torch.from_numpy(rng.randint(0, 256, (8, side, side, 3)).astype(np.uint8))
+        intr = torch.from_numpy(crop_params(rng, 8, TILE, side, "normal")[3])
+        out = fn(model_b, crops.to(dev), intr.to(dev))
+        if tuple(out["pose3d_abs"].shape) != (8, 17, 3) or not bool(
+                torch.isfinite(out["pose3d_abs"]).all()):
+            fail("the exported bundle's predict fn gave no finite poses")
+        print(f"[20 multi] main --train (Config(), synthetic, {MP_CLI_STEPS} steps, "
+              f"validate_every {MP_CLI_VALIDATE}) in {train_s:.1f} s: val_mpjpe "
+              + ", ".join(f"step {r['step']} {r['val_mpjpe']:.2f}" for r in vals)
+              + f" mm, best checkpoint step {best_step} read back; main --test on it + "
+              f"--eval-h36m in {test_s:.1f} s: MPJPE {h36m['mpjpe']:.2f} mm over 64; --export "
+              f"+ load_exported: the checkpoint's weights bit for bit, one batch of 8 predicted")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[20 multi] phase time {time.perf_counter() - t_phase:.1f} s")
+    total = {k: sum(leg[k] for leg in legs) for k in ("pool", "pool_bwd", "warp", "occluder",
+                                                       "qk1", "qk2")}
+    total["warp_forms"] = {f: sum(leg["warp_forms"][f] for leg in legs) for f in warp.FORMS}
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
@@ -2824,8 +3189,9 @@ def main() -> int:
     int8_records, int8_path = phase_int8(rng, gen, dev, card, rates)  # 17
     feed = phase_feed(rng, dev, card, resident_ms["no background bank"])  # 18
     dataset = phase_dataset(dev, card)  # 19
-    int8_records[0]["launches"] += dataset["qk1"]
-    int8_records[1]["launches"] += dataset["qk2"]
+    mp = phase_multiperson(rng, dev, card)  # 20
+    int8_records[0]["launches"] += dataset["qk1"] + mp["qk1"]
+    int8_records[1]["launches"] += dataset["qk2"] + mp["qk2"]
 
     def kernel(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms, **more):
         return {"name": name, "route": "cuda",
@@ -2847,13 +3213,13 @@ def main() -> int:
     record = {"kernels": [
         kernel("maxpool3x3s2_same", "maxpool3x3s2.cu", pallas_pool,
                launches["pool"] + train_launches["pool"] + fam_launches["d_twofive"]["pool_same"]
-               + int8_path["pool"] + feed["pool"] + dataset["pool"],
+               + int8_path["pool"] + feed["pool"] + dataset["pool"] + mp["pool"],
                pool_err, pool_ms, pool_plain_ms, pool_bound, None,
                bound_share=pool_bound[0] / pool_ms, two_calls_ms=pool_two_calls_ms,
                ms_scalar=pool_scalar_ms),
         kernel("maxpool3x3s2_same_bwd", "maxpool3x3s2_bwd.cu", pallas_pool,
-               train_launches["pool_bwd"] + feed["pool_bwd"], bwd_err, bwd_ms, bwd_plain_ms,
-               bwd_bound, None,
+               train_launches["pool_bwd"] + feed["pool_bwd"] + mp["pool_bwd"], bwd_err, bwd_ms,
+               bwd_plain_ms, bwd_bound, None,
                bound_share=bwd_bound[0] / bwd_ms, ms_relu=bwd_relu_ms, ms_scalar=bwd_scalar_ms),
         *[kernel(f"maxpool3x3s2_{mode}" + ("_bwd" if way == "bwd" else ""),
                  "maxpool3x3s2_bwd.cu" if way == "bwd" else "maxpool3x3s2.cu", pallas_pool,
@@ -2864,7 +3230,7 @@ def main() -> int:
           for (mode, way), r in modes.items()],
         kernel("warp_crop", "warp_crop.cu", "metro_pose3d_tpu/ops/warp_pallas.py:415",
                launches["warp"] + train_launches["warp"] + int8_path["warp"] + feed["warp"]
-               + dataset["warp"],
+               + dataset["warp"] + mp["warp"],
                warp_max, none["ms"],
                none["plain_ms"],
                (none["bound_ms"], none["bound_by"]), None, call_ms=none["call_ms"],
@@ -2872,11 +3238,12 @@ def main() -> int:
                forms={f"{e}_{str(d)[6:]}": {**r, "launches": serve_forms[e, d] + train_forms[e, d]
                                                 + int8_path["warp_forms"][e, d]
                                                 + feed["warp_forms"].get((e, d), 0)
-                                                + dataset["warp_forms"].get((e, d), 0)}
+                                                + dataset["warp_forms"].get((e, d), 0)
+                                                + mp["warp_forms"][e, d]}
                       for (e, d), r in warp_forms.items()}),
         kernel("occluder_paste", "occluder_paste.cu", "metro_pose3d_tpu/ops/warp_pallas.py:507",
-               train_launches["occluder"] + feed["occluder"], occ_err, occ_ms, occ_plain_ms,
-               occ_bound, None),
+               train_launches["occluder"] + feed["occluder"] + mp["occluder"], occ_err, occ_ms,
+               occ_plain_ms, occ_bound, None),
         *probe_records,
         *int8_records,
     ]}

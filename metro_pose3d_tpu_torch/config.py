@@ -4,7 +4,8 @@ The port's own copy of the JAX package's `config.py`: the same frozen
 dataclasses with the same fields and defaults (a test compares the two trees
 field by field, and a JSON written by either package's `config_to_json`
 loads in the other), `apply_overrides` with dotted paths such as
-``model.depth=8``, `config_to_json` and `ModelConfig.at_phase`.
+``model.depth=8``, `parse_cli` for ``--model.depth=8`` flags,
+`config_to_json` and `ModelConfig.at_phase`.
 
 Fields that steer TPU-only machinery are kept so that one configuration
 file serves both packages. The port refuses `train.fused_steps > 1`, and
@@ -222,6 +223,18 @@ def apply_overrides(cfg: Config, overrides: dict) -> Config:
             coerced[name] = _coerce(str(raw), type(current))
         updates[section] = dataclasses.replace(sub, **coerced)
     return dataclasses.replace(cfg, **updates)
+
+
+def parse_cli(argv) -> tuple[Config, list]:
+    """Parse ``--section.field=value`` overrides; returns (config, rest)."""
+    overrides, rest = {}, []
+    for arg in argv:
+        if arg.startswith("--") and "=" in arg and "." in arg.split("=", 1)[0]:
+            key, _, value = arg[2:].partition("=")
+            overrides[key] = value
+        else:
+            rest.append(arg)
+    return apply_overrides(Config(), overrides), rest
 
 
 def config_to_json(cfg: Config) -> str:

@@ -28,6 +28,9 @@
 //   none       v255                                    float32 [0,255]
 //   unit       v255 * unit                             float32 [0,1]
 //   normalize  (v255 * unit) * scale + offset          float32 or bf16 [-1,1]
+//   normalize_div (v255 / 255) * scale + offset        float32 or bf16 [-1,1]
+// normalize_div is the frame path's `normalize(x / 255.0)`: an IEEE division
+// (__fdiv_rn), not the product by the rounded reciprocal that `unit` takes.
 // bf16 rounds to nearest even with __float2bfloat16_rn, the conversion
 // PyTorch's `.to(torch.bfloat16)` runs on the card.
 //
@@ -55,7 +58,8 @@
 
 namespace {
 
-constexpr int kNone = 0, kUnit = 1, kNormalize = 2;  // epilogues, as the wrapper numbers them
+// epilogues, as the wrapper numbers them
+constexpr int kNone = 0, kUnit = 1, kNormalize = 2, kNormalizeDiv = 3;
 constexpr int kWarps = 4, kThreads = 32 * kWarps;      // a block: one row a warp
 
 struct Epilogue {
@@ -127,7 +131,7 @@ __device__ __forceinline__ void sample(const float* P, const uint8_t* __restrict
 template <int kEpi>
 __device__ __forceinline__ float epilogue(float v, const Epilogue& e) {
   if (kEpi == kNone) return v;
-  const float t = __fmul_rn(v, e.unit);
+  const float t = kEpi == kNormalizeDiv ? __fdiv_rn(v, 255.0f) : __fmul_rn(v, e.unit);
   if (kEpi == kUnit) return t;
   return __fadd_rn(__fmul_rn(t, e.scale), e.offset);
 }
@@ -207,7 +211,7 @@ cudaError_t launch(const void* src, const void* params, const void* src_idx, voi
 
 // src: uint8 [N, TH, TW, 3]; params: float32 [B, 18]; src_idx: int32 [B];
 // out: [B, S, S, 3], float32 (out_bf16 = 0) or bf16 (out_bf16 = 1, only with
-// the normalize epilogue); epi: 0 none, 1 unit, 2 normalize. Returns
+// a normalize epilogue); epi: 0 none, 1 unit, 2 normalize, 3 normalize_div. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a form it
 // does not take.
 extern "C" int metro_warp_crop(const void* src, const void* params, const void* src_idx,
@@ -221,12 +225,17 @@ extern "C" int metro_warp_crop(const void* src, const void* params, const void* 
   if (out_bf16) {
     if (epi == kNormalize)
       err = launch<kNormalize, __nv_bfloat16, 8>(src, params, src_idx, out, B, N, TH, TW, S, e, s);
+    else if (epi == kNormalizeDiv)
+      err = launch<kNormalizeDiv, __nv_bfloat16, 8>(src, params, src_idx, out, B, N, TH, TW, S, e,
+                                                    s);
   } else if (epi == kNone) {
     err = launch<kNone, float, 4>(src, params, src_idx, out, B, N, TH, TW, S, e, s);
   } else if (epi == kUnit) {
     err = launch<kUnit, float, 4>(src, params, src_idx, out, B, N, TH, TW, S, e, s);
   } else if (epi == kNormalize) {
     err = launch<kNormalize, float, 4>(src, params, src_idx, out, B, N, TH, TW, S, e, s);
+  } else if (epi == kNormalizeDiv) {
+    err = launch<kNormalizeDiv, float, 4>(src, params, src_idx, out, B, N, TH, TW, S, e, s);
   }
   return (int)err;
 }

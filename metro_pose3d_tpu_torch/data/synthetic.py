@@ -344,6 +344,100 @@ def make_example(index: int, seed: int = 0, imshape=(512, 512)) -> Example:
     return Example(image=img, bbox=bbox, camera=cam, world_coords=world)
 
 
+def _make_frame_background(rng: np.random.Generator, imshape) -> np.ndarray:
+    """Shared multi-person frame background: dark fill + random clutter."""
+    h, w = imshape
+    img = np.empty((h, w, 3), np.uint8)
+    img[...] = np.tile(rng.integers(10, 70, 3).astype(np.uint8), w).reshape(w, 3)
+    for _ in range(16):
+        p1 = rng.integers(0, (w, h)).astype(int)
+        p2 = rng.integers(0, (w, h)).astype(int)
+        color = tuple(int(v) for v in rng.integers(0, 110, 3))
+        draw_line(img, p1, p2, color, int(rng.integers(1, 6)))
+    return img
+
+
+def _render_person(img: np.ndarray, cam: Camera, world: np.ndarray, colors) -> list:
+    """Draw one person's joints into `img`; returns their [x, y, w, h] box
+    (the joints' extent plus a 50 px detector margin). The static frame and
+    the sequence both draw through it."""
+    px = cam.world_to_image(world)
+    depth = float(world[:, 2].mean())
+    radius = max(2, int(180 / depth * cam.K[0, 0] / 55))
+    for pt, c in zip(px, colors):
+        if np.all(np.isfinite(pt)):
+            draw_disc(img, (int(round(pt[0])), int(round(pt[1]))), radius, c)
+    lo, hi = px.min(0) - 50, px.max(0) + 50
+    return [lo[0], lo[1], hi[0] - lo[0], hi[1] - lo[1]]
+
+
+def make_multiperson_frame(n_persons: int, seed: int = 0, imshape=(512, 910)):
+    """One synthetic frame with several people under a single camera.
+
+    -> (image uint8 RGB, boxes [P,4], Camera, world [P,17,3] mm): the
+    input of the multi-person estimator (`multiperson.py`) without
+    detector or dataset assets.
+    """
+    rng = np.random.default_rng((seed, 777))
+    cam = Camera.from_fov(65.0, imshape)
+    img = _make_frame_background(rng, imshape)
+
+    worlds, boxes = [], []
+    colors = _joint_colors(len(_BASE_POSE))
+    for p in range(n_persons):
+        depth = rng.uniform(3000, 6500)
+        # spread people horizontally so boxes don't fully overlap
+        x = (p - (n_persons - 1) / 2) * depth * 0.45 / max(n_persons / 3, 1)
+        root = np.array([x, rng.uniform(-0.05, 0.1) * depth, depth])
+        world = random_pose(rng) + root
+        boxes.append(_render_person(img, cam, world, colors))
+        worlds.append(world)
+    return img, np.asarray(boxes, np.float64), cam, np.stack(worlds)
+
+
+def make_multiperson_sequence(n_persons: int, n_frames: int, seed: int = 0,
+                              imshape=(512, 910)):
+    """Smoothly moving synthetic video: yields (image, boxes, Camera, world)
+    per frame. People walk sinusoidal tracks in x and depth while their pose
+    blends between two random poses; the background and the camera stay
+    fixed, as for a static camera. Feeds `MultiPersonEstimator.estimate_stream`
+    without video assets."""
+    rng = np.random.default_rng((seed, 778))
+    cam = Camera.from_fov(65.0, imshape)
+    bg = _make_frame_background(rng, imshape)
+
+    colors = _joint_colors(len(_BASE_POSE))
+    tracks = []
+    for p in range(n_persons):
+        depth0 = rng.uniform(3500, 6000)
+        x0 = (p - (n_persons - 1) / 2) * depth0 * 0.45 / max(n_persons / 3, 1)
+        tracks.append({
+            "x0": x0, "depth0": depth0,
+            "amp_x": rng.uniform(200, 600), "amp_z": rng.uniform(150, 500),
+            "phase": rng.uniform(0, 2 * np.pi),
+            "period": rng.uniform(0.6, 1.4) * max(n_frames, 2),
+            "pose_a": random_pose(rng), "pose_b": random_pose(rng),
+            "y_frac": rng.uniform(-0.05, 0.1),
+        })
+
+    for f in range(n_frames):
+        img = bg.copy()
+        worlds, boxes = [], []
+        for tr in tracks:
+            t = 2 * np.pi * f / tr["period"] + tr["phase"]
+            root = np.array([
+                tr["x0"] + tr["amp_x"] * np.sin(t),
+                tr["y_frac"] * tr["depth0"],
+                tr["depth0"] + tr["amp_z"] * np.cos(t),
+            ])
+            # the pose blends a -> b -> a over the sequence
+            alpha = 0.5 - 0.5 * np.cos(2 * np.pi * f / max(n_frames, 2))
+            world = (1 - alpha) * tr["pose_a"] + alpha * tr["pose_b"] + root
+            boxes.append(_render_person(img, cam, world, colors))
+            worlds.append(world)
+        yield img, np.asarray(boxes, np.float64), cam, np.stack(worlds)
+
+
 class SyntheticDataset:
     joint_info: JointInfo = H36M_17
     root_joint = "pelv"

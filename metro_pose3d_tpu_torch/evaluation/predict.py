@@ -12,8 +12,9 @@ rescale and absolute reconstruction run in one call per batch. Where
 `torch.distributed` is initialized, each process takes a contiguous block of
 the test split (`host_block`) and dumps it with its `example_offset`.
 
-Multi-person prediction (`predict_multiperson_dataset` in the reference)
-waits for the port's multi-person mode.
+`predict_multiperson_dataset` is the frame-wise protocol (3DPW): each test
+frame's boxes through `multiperson.MultiPersonEstimator.estimate_stream`,
+one dump row per person.
 """
 from __future__ import annotations
 
@@ -25,8 +26,9 @@ import time
 import numpy as np
 import torch
 
-from metro_pose3d_tpu_torch.config import Config
+from metro_pose3d_tpu_torch.config import Config, apply_matmul_precision
 from metro_pose3d_tpu_torch.evaluation.engine import TILE_KEYS, make_predict_fn
+from metro_pose3d_tpu_torch.multiperson import MultiPersonEstimator
 from metro_pose3d_tpu_torch.pipeline.loader import batch_iterator, prefetch
 
 log = logging.getLogger("metro_torch.predict")
@@ -131,6 +133,7 @@ def predict_dataset(
     n_examples: int | None = None,
     predict_fn=None,
     stats: dict | None = None,
+    replicate_hosts: bool = False,
 ) -> dict:
     """Run the test split through `model`, on the model's device; returns
     a dict of stacked numpy arrays (`save_predictions` writes it).
@@ -138,8 +141,11 @@ def predict_dataset(
     Row i of the dump is example `example_offset + i` (recorded in the
     result): with `torch.distributed` initialized each process predicts its
     `host_block`, and the processes' dumps concatenate in rank order.
-    `predict_fn` reuses a fn from `make_dataset_predict_fn`. The model runs
-    in eval mode and is left in the mode it came in. `stats`, when given, is
+    `predict_fn` reuses a fn from `make_dataset_predict_fn`.
+    `replicate_hosts=True` makes every process predict the whole split
+    (training validation, so that every process takes the same best
+    checkpoint). The model runs in eval mode and is left in the mode it came
+    in. `stats`, when given, is
     filled with the batch count, the wall seconds of the loop and the
     seconds it waited for the loader.
     """
@@ -150,7 +156,10 @@ def predict_dataset(
         cfg, dataset, mean_bones=mean_bones)
     device = next(model.parameters()).device
     n_total = dataset.n_test if n_examples is None else min(n_examples, dataset.n_test)
-    offset, n = host_block(n_total, *process_index_count())
+    if replicate_hosts:
+        offset, n = 0, n_total
+    else:
+        offset, n = host_block(n_total, *process_index_count())
     it = batch_iterator(
         functools.partial(_offset_test_example, dataset, offset),
         n, ji, cfg.eval.batch_size,
@@ -208,6 +217,52 @@ def predict_dataset(
     result["joint_names"] = np.array(ji.names)
     result["example_offset"] = np.int64(offset)
     return result
+
+
+def predict_multiperson_dataset(cfg: Config, model, dataset, n_frames: int | None = None,
+                                mean_bones=None) -> dict:
+    """Frame-wise multi-person prediction (BASELINE configuration 5; 3DPW)
+    on the model's device.
+
+    `dataset` exposes `joint_info`, `root_joint`, `n_test_frames` and
+    `test_frame(i) -> (image, boxes, camera, world [P,J,3], seq)`. Returns
+    the `eval_3dpw` dump layout, one row per person: pose3d (root-relative),
+    pose3d_abs, gt3d, gt3d_abs (mm, in the frame's camera) and seq.
+    """
+    apply_matmul_precision(cfg)
+    ji = dataset.joint_info
+    _check_joint_count(cfg, ji)
+    root = ji.names.index(dataset.root_joint)
+    est = MultiPersonEstimator(
+        cfg, model, ji, root_name=dataset.root_joint,
+        bone_edges=ji.bones if mean_bones is not None else None, mean_bones=mean_bones)
+    n = dataset.n_test_frames if n_frames is None else min(n_frames, dataset.n_test_frames)
+    rows = {"pose3d": [], "pose3d_abs": [], "gt3d": [], "gt3d_abs": [], "seq": []}
+    meta: list = []
+
+    def frames():
+        for i in range(n):
+            image, boxes, cam, world, seq = dataset.test_frame(i)
+            meta.append((cam, world, seq, len(boxes)))
+            yield image, boxes, cam
+
+    # the stream reads frames ahead of its results, so meta[i] is filled
+    # before result i arrives
+    for i, out in enumerate(est.estimate_stream(frames())):
+        cam, world, seq, n_boxes = meta[i]
+        gt_abs = np.stack([cam.world_to_camera(w) for w in world])
+        rows["pose3d"].append(out["pose3d_rootrel"])
+        rows["pose3d_abs"].append(out["pose3d_abs"])
+        rows["gt3d"].append(gt_abs - gt_abs[:, root : root + 1])
+        rows["gt3d_abs"].append(gt_abs)
+        rows["seq"].extend([seq] * n_boxes)
+    return {
+        "pose3d": np.concatenate(rows["pose3d"]),
+        "pose3d_abs": np.concatenate(rows["pose3d_abs"]),
+        "gt3d": np.concatenate(rows["gt3d"]).astype(np.float32),
+        "gt3d_abs": np.concatenate(rows["gt3d_abs"]).astype(np.float32),
+        "seq": np.asarray(rows["seq"]),
+    }
 
 
 def save_predictions(result: dict, path: str):

@@ -12,8 +12,12 @@ An epilogue maps the float32 [0,255] samples to what the caller feeds on:
     none       float32 [0,255]
     unit       `x * (1/255)`, float32 [0,1] (the train leg, before the
                occluder paste)
-    normalize  `normalize(x * (1/255))`, float32 or bf16 [-1,1] (serving)
+    normalize  `normalize(x * (1/255))`, float32 or bf16 [-1,1] (tile-in
+               serving)
+    normalize_div  `normalize(x / 255)`, float32 or bf16 [-1,1] (the
+               multi-person frame path, whose reference divides)
 each step rounded in float32 as the unfused PyTorch chain rounds it.
+`warp_from_frame` samples many crops out of one shared frame.
 
 `warp_images` takes the plain PyTorch version for CPU tensors and launches
 the CUDA kernel (csrc/warp_crop.cu, the epilogue fused into its store) for
@@ -29,11 +33,12 @@ from metro_pose3d_tpu_torch import reference_constants as C
 from metro_pose3d_tpu_torch.kernels import build
 from metro_pose3d_tpu_torch.ops.color import normalize
 
-EPILOGUES = ("none", "unit", "normalize")
+EPILOGUES = ("none", "unit", "normalize", "normalize_div")
 # (epilogue, output dtype) -> kernel launches on CUDA tensors. `LAUNCHES`
 # (the total) is a view of it.
 FORMS = (("none", torch.float32), ("unit", torch.float32), ("normalize", torch.float32),
-         ("normalize", torch.bfloat16))
+         ("normalize", torch.bfloat16), ("normalize_div", torch.float32),
+         ("normalize_div", torch.bfloat16))
 KERNEL_LAUNCHES = dict.fromkeys(FORMS, 0)
 # the epilogue's constants as PyTorch rounds the Python scalars of
 # `x * (1.0 / 255.0)` and `normalize`: float32 values
@@ -125,9 +130,13 @@ def bilinear_sample(images, coords, valid_mask=None, source_indices=None):
 def apply_epilogue(crops, epilogue: str = "none", out_dtype=torch.float32):
     """The plain epilogue: float32 [0,255] crops -> the epilogue's units in
     `out_dtype`, by the unfused chain the kernel's store reproduces."""
-    if epilogue != "none":
+    if epilogue == "normalize_div":
+        # an IEEE division: on CUDA, a tensor divided by a Python scalar is
+        # multiplied by the scalar's reciprocal, so divide by a tensor
+        crops = crops / crops.new_full((), 255.0)
+    elif epilogue != "none":
         crops = crops * (1.0 / 255.0)
-    if epilogue == "normalize":
+    if epilogue.startswith("normalize"):
         crops = normalize(crops)
     return crops.to(out_dtype)
 
@@ -223,3 +232,14 @@ def warp_images(sources, h_mats, k_vecs, dists, out_side: int, source_indices=No
         return warp_images_cuda(sources, h_mats, k_vecs, dists, out_side, source_indices,
                                 epilogue, out_dtype)
     raise ValueError(f"warp_images: unsupported device {sources.device}")
+
+
+def warp_from_frame(frame_u8, h_mats, k_vecs, dists, out_side: int, epilogue: str = "none",
+                    out_dtype=torch.float32):
+    """Warp many crops out of one shared frame (the multi-person frame path):
+    frame_u8 uint8 [H,W,3], per-crop parameters in frame pixel coordinates
+    -> [B,S,S,3]. One K1 launch with every crop reading source 0."""
+    b = h_mats.shape[0]
+    idx = torch.zeros(b, dtype=torch.int32, device=frame_u8.device)
+    return warp_images(frame_u8[None], h_mats, k_vecs, dists, out_side, idx, epilogue,
+                       out_dtype)

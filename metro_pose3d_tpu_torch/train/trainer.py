@@ -1,9 +1,12 @@
 """Single-process training loop (`metro_pose3d_tpu/train/trainer.py`):
 feeds the step from datasets through the host input pipeline, runs it, and
-keeps the books: `config.json`, `history.jsonl` (appended at every log
-step) and `history.json` (the whole run, written at the end), checkpoints
-every `checkpoint_every` steps with auto-resume, `data.cycle_batches` and a
-`torch.profiler` trace of `profile_steps` steps into `<logdir>/profile`.
+keeps the books: `config.json`, the metric writer (`utils/writers.py`:
+`history.jsonl`, appended at every log step and validation, and TensorBoard
+where it imports) and `history.json` (the whole run, written at the end),
+checkpoints every `checkpoint_every` steps with auto-resume, validation
+MPJPE on the test split every `validate_every` steps with the best
+checkpoint kept apart (`Checkpointer.save_if_best`), `data.cycle_batches`
+and a `torch.profiler` trace of `profile_steps` steps into `<logdir>/profile`.
 
 The feed: `mixed_batch_iterator` (per-example crop prep on loader threads or
 processes, in the C or the numpy engine) -> `prefetch` (a thread that keeps
@@ -25,6 +28,9 @@ import torch
 
 from metro_pose3d_tpu_torch.config import Config, apply_matmul_precision, config_to_json
 from metro_pose3d_tpu_torch.device import resolve_device
+from metro_pose3d_tpu_torch.evaluation.metrics import mpjpe
+from metro_pose3d_tpu_torch.evaluation.predict import make_dataset_predict_fn, predict_dataset
+from metro_pose3d_tpu_torch.models.metro import MetroModel
 from metro_pose3d_tpu_torch.pipeline.backgrounds import get_background_bank
 from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
 from metro_pose3d_tpu_torch.pipeline.loader import batch_iterator, prefetch, stack_examples
@@ -33,6 +39,7 @@ from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
 from metro_pose3d_tpu_torch.train.joint_mapping import name_mapping, remap_prepared
 from metro_pose3d_tpu_torch.train.loop import make_lr_schedule, make_train_step
 from metro_pose3d_tpu_torch.train.state import create_train_state
+from metro_pose3d_tpu_torch.utils.writers import make_metric_writer
 
 log = logging.getLogger("metro_torch.train")
 
@@ -73,6 +80,22 @@ def mixed_batch_iterator(cfg: Config, dataset, dataset2d=None, n_backgrounds=0,
         it2d.close()
 
 
+def validate(cfg: Config, model, dataset, n_batches: Optional[int] = None,
+             predict_fn=None) -> float:
+    """Validation MPJPE (mm, root-relative) over the first `n_batches`
+    (default `train.validate_batches`) eval batches of the test split, on
+    the model's device and in eval mode (the model's mode is restored).
+    Pass `predict_fn` from `make_dataset_predict_fn` when validating again
+    and again. Every process predicts the same examples (`replicate_hosts`),
+    so that all keep the same best checkpoint."""
+    if n_batches is None:
+        n_batches = cfg.train.validate_batches
+    n = min(cfg.eval.batch_size * n_batches, dataset.n_test)
+    result = predict_dataset(cfg, model, dataset, n_examples=n, replicate_hosts=True,
+                             predict_fn=predict_fn)
+    return mpjpe(result["pose3d_rootrel"], result["gt3d_rootrel"], result["valid"])
+
+
 def _prior_history(logdir: str, start_step: int) -> list:
     """Rows logged up to the resume point, from the append-only jsonl
     stream; rows past it describe steps the resumed run does again."""
@@ -91,14 +114,9 @@ def _prior_history(logdir: str, start_step: int) -> list:
     return rows
 
 
-def _check_supported(cfg: Config, total: int) -> None:
+def _check_supported(cfg: Config) -> None:
     if cfg.train.fused_steps > 1:
         raise NotImplementedError("train.fused_steps > 1 is not ported (measured null)")
-    if cfg.train.validate_every and cfg.train.validate_every <= total:
-        raise NotImplementedError(
-            "in-loop validation (train.validate_every > 0) is not wired into the port's "
-            "loop yet (ROADMAP.md queue 1 item 6; evaluation/predict.py::predict_dataset "
-            "is ported); set train.validate_every=0")
 
 
 def train(cfg: Config, dataset, dataset2d=None, max_steps: Optional[int] = None,
@@ -112,10 +130,12 @@ def train(cfg: Config, dataset, dataset2d=None, max_steps: Optional[int] = None,
     the loader. With `aug.background_prob` > 0 and `dataset.has_masks` the
     background bank is `get_background_bank(background_root or
     data.background_root, data.source_side)` and the loader ships masks and
-    background parameters; otherwise no bank is built. device: default the
-    card; a RuntimeError where CUDA is absent.
+    background parameters; otherwise no bank is built. Every
+    `train.validate_every` steps the current weights are validated on
+    `dataset`'s test split (`validate`). device: default the card; a
+    RuntimeError where CUDA is absent.
     """
-    _check_supported(cfg, min(cfg.train.num_steps, max_steps or cfg.train.num_steps))
+    _check_supported(cfg)
     device = resolve_device(device)
     occluder_bank = get_occluder_bank(occluder_root or cfg.data.occluder_root or None,
                                       tile_side=cfg.aug.occluder_tile_side)
@@ -130,13 +150,13 @@ def train(cfg: Config, dataset, dataset2d=None, max_steps: Optional[int] = None,
             skip_batches=skip_batches, n_occluders=len(occluder_bank))
 
     root = dataset.joint_info.names.index(dataset.root_joint)
-    return _run(cfg, feed, occluder_bank, bg_bank, max_steps, root, device)
+    return _run(cfg, feed, occluder_bank, bg_bank, max_steps, root, device, dataset)
 
 
 def _train_on_batches(cfg: Config, batches: Iterator[dict],
                       occluder_bank: Optional[np.ndarray] = None,
                       max_steps: Optional[int] = None, root_index: int = 0, device=None,
-                      background_bank: Optional[np.ndarray] = None):
+                      background_bank: Optional[np.ndarray] = None, val_dataset=None):
     """`train` fed with ready host batches instead of a dataset, for tests
     and smoke runs that make their own batches (numpy, in the
     `pipeline/device.py::example_spec` layout).
@@ -145,9 +165,11 @@ def _train_on_batches(cfg: Config, batches: Iterator[dict],
     background_bank: uint8 [N,T,T,3]; with `aug.background_prob` > 0 and a
     first batch that carries "source_mask" it defaults to the bank `train`
     would build; otherwise none is built or used. On resume the first
-    `start_step` batches of `batches` are discarded.
+    `start_step` batches of `batches` are discarded. val_dataset: the
+    dataset that in-loop validation predicts, needed where
+    `train.validate_every` falls within the run.
     """
-    _check_supported(cfg, min(cfg.train.num_steps, max_steps or cfg.train.num_steps))
+    _check_supported(cfg)
     batches = iter(batches)
     device = resolve_device(device)
     if occluder_bank is None:
@@ -162,16 +184,21 @@ def _train_on_batches(cfg: Config, batches: Iterator[dict],
     else:
         background_bank = None
     return _run(cfg, lambda skip: itertools.islice(batches, skip, None), occluder_bank,
-                background_bank, max_steps, root_index, device)
+                background_bank, max_steps, root_index, device, val_dataset)
 
 
 def _run(cfg: Config, feed: Callable[[int], Iterator[dict]], occluder_bank: np.ndarray,
          background_bank: Optional[np.ndarray], max_steps: Optional[int], root_index: int,
-         device: torch.device):
+         device: torch.device, val_dataset=None):
     """The loop of `train`: `feed(k)` gives the host batches from the k-th
-    on (k = the restored step, or 0 with `data.cycle_batches`)."""
+    on (k = the restored step, or 0 with `data.cycle_batches`);
+    `val_dataset` is the dataset that validation predicts."""
     t = cfg.train
     total = min(t.num_steps, max_steps or t.num_steps)
+    validating = bool(t.validate_every) and t.validate_every <= total
+    if validating and val_dataset is None:
+        raise ValueError(f"train.validate_every={t.validate_every} falls within the run's "
+                         f"{total} steps, but no dataset to validate on was given")
     apply_matmul_precision(cfg)
     os.makedirs(t.logdir, exist_ok=True)
     with open(os.path.join(t.logdir, "config.json"), "w") as f:
@@ -200,52 +227,72 @@ def _run(cfg: Config, feed: Callable[[int], Iterator[dict]], occluder_bank: np.n
         it = (batch_to_device(b, device)
               for b in prefetch(itertools.islice(src, max(total - start_step, 0))))
 
+    val_fn = val_model = None
+    if validating:
+        # built once, and reused by every validation
+        val_fn = make_dataset_predict_fn(cfg, val_dataset)
+        # the weights are validated at the test phase's output stride
+        if cfg.model.at_phase(train=False) != cfg.model.at_phase(train=True):
+            val_model = MetroModel(cfg.model).to(device).eval()
+
     lr_sched = make_lr_schedule(cfg)
     history = _prior_history(t.logdir, start_step) if start_step else []
+    writer = make_metric_writer(t.logdir)
     prof_at = start_step + 3 if t.profile_steps > 0 else None  # past the first steps
     prof = None
     t_last, n_since, wait = time.perf_counter(), 0, 0.0
     try:
-        with open(os.path.join(t.logdir, "history.jsonl"), "a") as jsonl:
-            done = start_step
-            while done < total:
-                if prof_at is not None and done == prof_at:
-                    activities = [torch.profiler.ProfilerActivity.CPU]
-                    if device.type == "cuda":
-                        activities.append(torch.profiler.ProfilerActivity.CUDA)
-                    prof = torch.profiler.profile(activities=activities)
-                    prof.start()
-                t_wait = time.perf_counter()
-                batch = next(it)
-                wait += time.perf_counter() - t_wait
-                metrics = step_fn(state, batch)
-                n_since += int(batch["is_3d"].shape[0])
-                done += 1
-                if prof is not None and done - prof_at >= t.profile_steps:
-                    _stop_profiler(prof, device, t.logdir)
-                    prof, prof_at = None, None
+        done = start_step
+        while done < total:
+            if prof_at is not None and done == prof_at:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=activities)
+                prof.start()
+            t_wait = time.perf_counter()
+            batch = next(it)
+            wait += time.perf_counter() - t_wait
+            metrics = step_fn(state, batch)
+            n_since += int(batch["is_3d"].shape[0])
+            done += 1
+            if prof is not None and done - prof_at >= t.profile_steps:
+                _stop_profiler(prof, device, t.logdir)
+                prof, prof_at = None, None
 
-                if done % t.log_every == 0 or done == total:
-                    scalars = {k: float(v) for k, v in metrics.items()}  # syncs
-                    dt = time.perf_counter() - t_last
-                    scalars["crops_per_sec"] = n_since / dt
-                    # the share of the wall time the loop waited for a host
-                    # batch and its copy to the device
-                    scalars["loader_wait_share"] = wait / dt
-                    scalars["learning_rate"] = float(lr_sched(done - 1))
-                    log.info("step %d loss=%.4f (3d=%.4f 2d=%.4f) |g|=%.2f %.1f crops/s, "
-                             "%.0f%% waiting for data", done, scalars["loss"],
-                             scalars["loss3d"], scalars["loss2d"], scalars["grad_norm"],
-                             scalars["crops_per_sec"], 100 * scalars["loader_wait_share"])
-                    row = {"step": done, **scalars}
-                    jsonl.write(json.dumps(row) + "\n")
-                    jsonl.flush()
-                    history.append(row)
-                    t_last, n_since, wait = time.perf_counter(), 0, 0.0
-                if done % t.checkpoint_every == 0 or done == total:
-                    ckpt.save(done, state)
+            if done % t.log_every == 0 or done == total:
+                scalars = {k: float(v) for k, v in metrics.items()}  # syncs
+                dt = time.perf_counter() - t_last
+                scalars["crops_per_sec"] = n_since / dt
+                # the share of the wall time the loop waited for a host batch
+                # and its copy to the device
+                scalars["loader_wait_share"] = wait / dt
+                scalars["learning_rate"] = float(lr_sched(done - 1))
+                log.info("step %d loss=%.4f (3d=%.4f 2d=%.4f) |g|=%.2f %.1f crops/s, "
+                         "%.0f%% waiting for data", done, scalars["loss"], scalars["loss3d"],
+                         scalars["loss2d"], scalars["grad_norm"], scalars["crops_per_sec"],
+                         100 * scalars["loader_wait_share"])
+                writer.write_scalars(done, scalars)
+                history.append({"step": done, **scalars})
+                t_last, n_since, wait = time.perf_counter(), 0, 0.0
+            if done % t.checkpoint_every == 0 or done == total:
+                ckpt.save(done, state)
+
+            if t.validate_every and done % t.validate_every == 0:
+                t_val = time.perf_counter()
+                if val_model is not None:
+                    val_model.load_state_dict(state.model.state_dict())
+                val = validate(cfg, val_model or state.model, val_dataset, predict_fn=val_fn)
+                val_s = time.perf_counter() - t_val
+                t_last += val_s  # the logged rates count training only
+                log.info("step %d validation MPJPE %.2f mm (%.1f s)", done, val, val_s)
+                writer.write_scalars(done, {"val_mpjpe": val})
+                history.append({"step": done, "val_mpjpe": val})
+                if ckpt.save_if_best(done, state, val):
+                    log.info("step %d new best checkpoint (%.2f mm)", done, val)
     finally:
         _close(src)
+        writer.close()
     if prof is not None:  # the run ended inside the traced window
         _stop_profiler(prof, device, t.logdir)
     ckpt.wait()

@@ -21,6 +21,7 @@ import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "metro_pose3d_tpu_torch"
 DEVICE_DIRS = ("ops", "models", "evaluation", "pipeline", "train", "probes")
+DEVICE_MODULES = ("multiperson.py",)  # device code at the package's top level
 PRODUCTS = {"einsum", "matmul", "mm", "bmm", "_int_mm"}
 # host numpy modules in those directories (the crop algebra, the loader)
 HOST_FILES = {"pipeline/crops.py", "pipeline/loader.py", "train/joint_mapping.py"}
@@ -62,8 +63,9 @@ def _products(tree: ast.AST):
 
 
 def _device_files():
-    return sorted(p for d in DEVICE_DIRS for p in (PKG / d).rglob("*.py")
-                  if p.relative_to(PKG).as_posix() not in HOST_FILES)
+    return sorted([p for d in DEVICE_DIRS for p in (PKG / d).rglob("*.py")
+                   if p.relative_to(PKG).as_posix() not in HOST_FILES]
+                  + [PKG / m for m in DEVICE_MODULES])
 
 
 def test_host_files_import_no_torch():

@@ -81,7 +81,8 @@ def test_warp_kernel_matches_plain(cuda, shared_frame):
 
 
 FORMS = {f"{e}-{str(d)[6:]}": (e, d) for e, d in warp.FORMS}
-FORM_UNITS = {"none": 1.0, "unit": 1 / 255, "normalize": 2 / 255}  # [0,255] -> the form's
+FORM_UNITS = {"none": 1.0, "unit": 1 / 255, "normalize": 2 / 255,  # [0,255] -> the form's
+              "normalize_div": 2 / 255}
 
 
 def _same_bits(a, b):
@@ -120,7 +121,7 @@ def test_warp_out_of_range_source_gives_zeros_in_every_epilogue(cuda, form):
     k = torch.tensor([[1.0, 1.0, 0.0, 0.0]] * 2, device=cuda)
     out = warp.warp_images(src, h, k, torch.zeros(2, 5, device=cuda), 8,
                            torch.tensor([0, 5], device=cuda), epilogue, dtype)
-    zero = {"none": 0.0, "unit": 0.0, "normalize": -1.0}[epilogue]
+    zero = {"none": 0.0, "unit": 0.0, "normalize": -1.0, "normalize_div": -1.0}[epilogue]
     inside = warp.apply_epilogue(torch.full((1,), 200.0), epilogue, dtype).item()
     assert bool((out[1] == zero).all()) and bool((out[0] == inside).all())
 

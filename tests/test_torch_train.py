@@ -381,8 +381,10 @@ def test_train_profile_and_unported_options(tmp_path, host_batches, bank):
                   "train.logdir": str(tmp_path / "p")})
     _train_on_batches(cfg, iter(host_batches), occluder_bank=bank, device="cpu")
     assert os.path.exists(tmp_path / "p" / "profile" / "trace.json")
-    with pytest.raises(NotImplementedError, match="validate_every"):
-        train(_cfg(**{"train.validate_every": "2", "train.num_steps": "4"}), iter([]))
+    # in-loop validation is ported; the batch-fed loop needs the dataset it validates on
+    with pytest.raises(ValueError, match="validate_every"):
+        _train_on_batches(_cfg(**{"train.validate_every": "2", "train.num_steps": "4"}),
+                          iter([]), occluder_bank=bank, device="cpu")
     with pytest.raises(NotImplementedError, match="fused_steps"):
         train(_cfg(**{"train.fused_steps": "2"}), iter([]))
     # the warm start and the 2.5D loss are ported (tests/test_torch_convert_backbone.py,

@@ -25,7 +25,8 @@ TILE, SIDE, B = 64, 48, 3
 # [0,255] units: test_torch_kernels_plain.py's warp tolerance (float32
 # coordinate roundoff through the bilinear weights, summed in another order)
 WARP_ATOL = 1e-2
-UNITS = {"none": 1.0, "unit": 1 / 255, "normalize": 2 / 255}  # [0,255] -> the epilogue's units
+UNITS = {"none": 1.0, "unit": 1 / 255, "normalize": 2 / 255,  # [0,255] -> the epilogue's units
+         "normalize_div": 2 / 255}
 FORMS = {f"{e}-{str(d)[6:]}": (e, d) for e, d in warp.FORMS}
 
 
@@ -64,9 +65,11 @@ def _jax_chain(tiles, h, k, d, epilogue):
     """The JAX package's float32 chain: the reference warp, x 1/255, normalize."""
     x = jwarp.warp_images_reference(jnp.asarray(tiles, jnp.float32), jnp.asarray(h),
                                     jnp.asarray(k), jnp.asarray(d), SIDE)
-    if epilogue != "none":
+    if epilogue == "normalize_div":  # the multi-person frame path's chain
+        x = x / 255.0
+    elif epilogue != "none":
         x = x * (1.0 / 255.0)
-    if epilogue == "normalize":
+    if epilogue.startswith("normalize"):
         x = jcolor.normalize(x)
     return x
 
