@@ -168,6 +168,25 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              and `--eval-h36m` (its printed scores equal `eval_h36m`'s),
              `--export` and `load_exported` (the checkpoint's weights bit for
              bit, one batch predicted)
+ 21 dp       data-parallel training (`parallel/`): 2 ranks, each a process of
+             this script (`--dp-rank`), in a Gloo group on the one card
+             through a `file://` rendezvous, train the default Config()
+             (R50@256 bf16) on their rows of global batches of 64 3D + 32
+             2D rows of 512^2 tiles (32 + 16 a rank), device-resident, through
+             the batch-fed loop: 3 steps with a checkpoint, then a resume from
+             3 to 5; the ranks' states equal (sha256), rank 0's history steps
+             1..5 with finite losses, and on each rank K1 `unit`, K2, K3 and
+             K3's backward launched once a step, in their 16-byte variants;
+             each rank's ms a step and the share of a step spent in its
+             collectives (informative); one float32 step (TF32 off, R50@128,
+             global 6 + 2 rows) of the 2 ranks against one process on the
+             same global batch within TRAIN_PARITY_RTOL, and its BN statistics
+             and parameters as phase 11 holds them; then NCCL as a group of
+             one in this process: the float32 step within TRAIN_PARITY_RTOL of
+             the step without a group, and the bf16 step's times; NCCL with 2
+             ranks where the machine has two cards. A rank that fails, or a
+             spawn that outlasts DP_TIMEOUT, fails the phase after every rank
+             is killed
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -2760,11 +2779,363 @@ def phase_multiperson(rng, dev, card) -> dict:
     return total
 
 
+# --- phase 21: data-parallel training over ranks --------------------------------
+DP_WORLD = 2
+DP_STEPS, DP_CUT = 5, 3  # the run's steps; its checkpoint and resume point
+DP_TIMEOUT = 300  # seconds: a rank spawn, and the process group's collectives
+DP_TIMED_STEPS = 3
+DP_PARITY_ROWS = (6, 2)  # the float32 step's global 3D and 2D rows
+_LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def rank_rows(batch: dict, n3: int, n2: int, rank: int, world: int) -> dict:
+    """Rank `rank`'s rows of a global `train_batch` of n3 3D + n2 2D rows:
+    its share of each, 3D first, as `trainer.mixed_batch_iterator` lays out
+    a rank's batch. The ranks' batches in rank order make the global batch
+    that `merged_rows` gives."""
+    p3, p2 = n3 // world, n2 // world
+    idx = np.r_[rank * p3:(rank + 1) * p3, n3 + rank * p2:n3 + (rank + 1) * p2]
+    return {k: v[idx] for k, v in batch.items()}
+
+
+def merged_rows(batch: dict, n3: int, n2: int, world: int) -> dict:
+    parts = [rank_rows(batch, n3, n2, r, world) for r in range(world)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in batch}
+
+
+@contextlib.contextmanager
+def timed_collectives(acc: dict):
+    """Count the host seconds of every all_reduce, broadcast and barrier of
+    `torch.distributed` into acc["s"] (the calls into acc["n"], and the
+    seconds of those over a million elements, the flat gradient's, into
+    acc["big_s"]), each between two device synchronizations, so that a
+    collective's time holds no wait for the kernels queued before it."""
+    import torch.distributed as dist
+
+    saved = {name: getattr(dist, name) for name in ("all_reduce", "broadcast", "barrier")}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            acc["s"] += dt
+            acc["n"] += 1
+            if args and torch.is_tensor(args[0]) and args[0].numel() > 1_000_000:
+                acc["big_s"] += dt
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, timed(fn))
+    try:
+        yield acc
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def dp_step_times(step, state, batch) -> dict:
+    """ms a step (CUDA events over back-to-back steps), then the share of a
+    step's wall time spent in collectives, over DP_TIMED_STEPS steps that
+    synchronize around each collective (informative)."""
+    from metro_pose3d_tpu_torch.probes import time_ms
+
+    ms = time_ms(lambda: step(state, batch), iters=DP_TIMED_STEPS, warmup=1)
+    acc = {"s": 0.0, "n": 0, "big_s": 0.0}
+    with timed_collectives(acc):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"ms": ms, "sync_ms": 1e3 * wall / DP_TIMED_STEPS,
+            "collective_ms": 1e3 * acc["s"] / DP_TIMED_STEPS,
+            "gradient_ms": 1e3 * acc["big_s"] / DP_TIMED_STEPS,
+            "collectives": acc["n"] // DP_TIMED_STEPS, "collective_share": acc["s"] / wall}
+
+
+def state_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256(str(state.step).encode())
+    for k, v in state.model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_parity_step(dev, rank=0, world=1) -> tuple:
+    """One float32 step (TF32 off) of R50@128 from seed SEED + 3 on this
+    rank's rows of the global parity batch -> (metrics, state on the CPU).
+    With world 1, on the whole global batch in the ranks' order."""
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+    from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
+    from metro_pose3d_tpu_torch.pipeline.occluders import make_procedural_occluders
+    from metro_pose3d_tpu_torch.train.loop import make_train_step
+    from metro_pose3d_tpu_torch.train.state import create_train_state
+
+    n3, n2 = DP_PARITY_ROWS
+    pcfg = apply_overrides(Config(), {"model.compute_dtype": "float32", "model.proc_side": "128",
+                                      "train.warmup_steps": "0"})
+    gb = train_batch(np.random.RandomState(SEED + 22), n3, n2, TILE, 128, 64)
+    rows = (merged_rows(gb, n3, n2, DP_WORLD) if world == 1
+            else rank_rows(gb, n3, n2, rank, world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        st = create_train_state(pcfg, dev, seed=SEED + 3)
+        step = make_train_step(pcfg, 0, occluder_bank=pack_occluder_bank_for(
+            make_procedural_occluders(64, 96), dev))
+        m = step(st, batch_to_device(rows, dev))
+        metrics = {k: float(v) for k, v in m.items()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+    return metrics, {k: v.detach().cpu() for k, v in st.model.state_dict().items()}
+
+
+def dp_rank(backend: str, rank: int, world: int, tmp: str) -> int:
+    """One rank of phase 21, in a process of its own (`chip_smoke.py
+    --dp-rank BACKEND RANK WORLD DIR`): joins the group through a file in
+    DIR, trains its rows of the default Config()'s global batches (64 3D +
+    32 2D rows, 512^2 tiles) through the batch-fed loop, device-resident:
+    DP_CUT steps with a checkpoint, then a resume to DP_STEPS; then its
+    step's times and, with Gloo, its share of the float32 parity step.
+    Writes DIR/rank<r>.json."""
+    import torch.distributed as dist
+
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+    from metro_pose3d_tpu_torch.kernels import build
+    from metro_pose3d_tpu_torch.ops import occlusion, pool, warp
+    from metro_pose3d_tpu_torch.parallel.distributed import initialize_distributed
+    from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
+    from metro_pose3d_tpu_torch.pipeline.occluders import make_procedural_occluders
+    from metro_pose3d_tpu_torch.train.loop import make_train_step
+    from metro_pose3d_tpu_torch.train.trainer import _train_on_batches
+
+    # two Gloo ranks share the one card; NCCL takes a card a rank
+    dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+    initialize_distributed(rank, world, init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+                           backend=backend, timeout=DP_TIMEOUT, device=dev)
+    try:
+        build.load()
+        bank_np = make_procedural_occluders(64, 96)
+        host = [rank_rows(train_batch(np.random.RandomState(SEED + 21 + k), N3D, N2D, TILE, 256,
+                                      len(bank_np)), N3D, N2D, rank, world) for k in range(2)]
+        cfg = apply_overrides(Config(), {
+            "train.checkpoint_every": str(DP_CUT), "train.log_every": "1",
+            "train.validate_every": "0", "data.cycle_batches": "2",
+            "train.logdir": os.path.join(tmp, "run")})
+        pool.reset_launches()
+        warp.reset_launches()
+        occlusion.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _train_on_batches(cfg, iter(host), occluder_bank=bank_np, max_steps=DP_CUT, device=dev)
+        state = _train_on_batches(cfg, iter(host), occluder_bank=bank_np, max_steps=DP_STEPS,
+                                  device=dev)
+        torch.cuda.synchronize()
+        legs_s = time.perf_counter() - t0
+        out = {"step": state.step, "legs_s": legs_s, "digest": state_digest(state),
+               "launches": {"pool": pool.MODE_LAUNCHES["same"],
+                            "pool_bwd": pool.MODE_BWD_LAUNCHES["same"],
+                            "warp": warp.LAUNCHES, "occluder": occlusion.LAUNCHES},
+               "pool_variants": {w: dict(c) for w, c in pool.VARIANT_LAUNCHES.items()},
+               "warp_forms": {f"{e}_{str(d)[6:]}": n for (e, d), n in warp.KERNEL_LAUNCHES.items()}}
+        check_pool_variants(f"[21 dp] rank {rank}", ("fwd", "bwd"))
+        check_warp_forms_launched(f"[21 dp] rank {rank}", ("unit", torch.float32))
+        step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(bank_np, dev))
+        out["times"] = dp_step_times(step, state, batch_to_device(host[0], dev))
+        del state, step
+        torch.cuda.empty_cache()
+        if backend == "gloo":
+            metrics, sd = dp_parity_step(dev, rank, world)
+            out["parity_metrics"] = metrics
+            if rank == 0:
+                torch.save(sd, os.path.join(tmp, "parity_rank0.pt"))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(backend: str, world: int, tmp: str) -> list:
+    """Run `world` ranks of `dp_rank` -> their outputs. Every rank is killed
+    and reaped when one fails or the spawn outlasts DP_TIMEOUT; then the
+    phase fails with the ranks' last lines."""
+    env = {k: v for k, v in os.environ.items() if k not in _LAUNCH_ENV}
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank", backend, str(r),
+                 str(world), tmp], env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DP_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = []
+        for r in bad:
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                tails.append(f"rank {r} (exit {procs[r].returncode}):\n" + f.read()[-3000:])
+        fail(f"[21 dp] {backend} ranks failed:\n" + "\n".join(tails))
+    outs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def fmt_times(t: dict) -> str:
+    return (f"{t['ms']:.1f} ms a step; synchronized around its {t['collectives']} collectives "
+            f"{t['sync_ms']:.1f} ms, of which collectives {t['collective_ms']:.1f} ms "
+            f"({t['collective_share']:.0%}; the flat gradient's {t['gradient_ms']:.1f} ms)")
+
+
+def phase_dp(dev, card, resident_step_ms) -> dict:
+    """21: data-parallel training. Two ranks with Gloo on the one card; the
+    float32 parity step against one process; NCCL as a group of one in this
+    process (and two ranks where the machine has two cards). -> the ranks'
+    summed launches."""
+    import torch.distributed as dist
+
+    from metro_pose3d_tpu_torch.config import Config
+    from metro_pose3d_tpu_torch.parallel import mesh
+    from metro_pose3d_tpu_torch.parallel.distributed import initialize_distributed
+    from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
+    from metro_pose3d_tpu_torch.pipeline.occluders import make_procedural_occluders
+    from metro_pose3d_tpu_torch.train.loop import make_train_step
+    from metro_pose3d_tpu_torch.train.state import create_train_state
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        os.makedirs(os.path.join(tmp, "gloo"))
+        t0 = time.perf_counter()
+        outs = spawn_ranks("gloo", DP_WORLD, os.path.join(tmp, "gloo"))
+        spawn_s = time.perf_counter() - t0
+        for r, out in enumerate(outs):
+            if out["step"] != DP_STEPS or any(n != DP_STEPS for n in out["launches"].values()):
+                fail(f"[21 dp] rank {r}: step {out['step']}, launches {out['launches']} (want "
+                     f"one of each kernel a step, {DP_STEPS} steps)")
+        if len({out["digest"] for out in outs}) != 1:
+            fail(f"[21 dp] the ranks' states differ: {[out['digest'][:16] for out in outs]}")
+        with open(os.path.join(tmp, "gloo", "run", "history.json")) as f:
+            hist = json.load(f)
+        if [h["step"] for h in hist] != list(range(1, DP_STEPS + 1)) or not all(
+                np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist):
+            fail(f"[21 dp] rank 0's history is not steps 1..{DP_STEPS} with finite losses: {hist}")
+        print(f"[21 dp] {DP_WORLD} ranks, Gloo, on one card: Config() R50@256 bf16, global "
+              f"{N3D} 3D + {N2D} 2D rows (each rank {N3D // DP_WORLD} + {N2D // DP_WORLD}) of "
+              f"{TILE}^2 tiles, device-resident: {DP_CUT} steps with a checkpoint, resumed "
+              f"{DP_CUT} -> {DP_STEPS}, in {spawn_s:.1f} s with the ranks' start; losses "
+              + ", ".join(f"{h['loss']:.4f}" for h in hist)
+              + f"; the ranks' states equal (sha256 {outs[0]['digest'][:16]}); launches a rank "
+              f"{outs[0]['launches']}, pool variants {outs[0]['pool_variants']}, warp forms "
+              f"{outs[0]['warp_forms']}")
+        for r, out in enumerate(outs):
+            print(f"[21 dp] rank {r} of {DP_WORLD} (Gloo, one card shared), informative: "
+                  f"{fmt_times(out['times'])}; one process's step (phase 12) "
+                  f"{resident_step_ms:.1f} ms  [{card}]")
+
+        # the float32 step of the 2 ranks against one process, same global batch
+        want, want_sd = dp_parity_step(dev)
+        got = outs[0]["parity_metrics"]
+        for r, out in enumerate(outs[1:], 1):
+            if out["parity_metrics"] != got:
+                fail(f"[21 dp] rank {r}'s parity metrics differ from rank 0's")
+        for k, tol in TRAIN_PARITY_RTOL.items():
+            if not abs(got[k] - want[k]) <= tol * abs(want[k]):
+                fail(f"[21 dp] float32 step, 2 ranks vs one process, {k}: {got[k]} vs {want[k]} "
+                     f"(rtol {tol})")
+        got_sd = torch.load(os.path.join(tmp, "gloo", "parity_rank0.pt"), weights_only=True)
+        stats = [k for k in want_sd if k.endswith((".mean", ".var"))]
+        stat_err = max(float((got_sd[k] - want_sd[k]).abs().max()) for k in stats)
+        diff = torch.cat([(got_sd[k] - want_sd[k]).abs().flatten() for k in want_sd
+                          if k not in stats])
+        lr = Config().train.base_lr
+        near = float((diff <= 0.1 * lr).float().mean())
+        if not (stat_err <= STATS_ATOL and float(diff.max()) <= 2 * lr + 1e-6 and near > 0.99):
+            fail(f"[21 dp] float32 step, 2 ranks vs one process: BN stats {stat_err:.2e} (tol "
+                 f"{STATS_ATOL}), params max {float(diff.max()):.2e} (tol 2 lr), share within "
+                 f"lr/10 {near:.4f} (want > 0.99)")
+        n3, n2 = DP_PARITY_ROWS
+        print(f"[21 dp] one float32 step (TF32 off) R50@128, global {n3} + {n2} rows, 2 Gloo ranks "
+              f"vs one process on the card: rel diff "
+              + ", ".join(f"{k} {abs(got[k] - want[k]) / abs(want[k]):.1e}"
+                          for k in TRAIN_PARITY_RTOL)
+              + f" (rtol {TRAIN_PARITY_RTOL}); BN stats {stat_err:.1e} (atol {STATS_ATOL}); "
+              f"params max {float(diff.max()):.1e} (<= 2 lr), share within lr/10 {near:.5f}")
+
+        # NCCL as a group of one, in this process
+        initialize_distributed(0, 1, init_method=f"file://{os.path.join(tmp, 'nccl_rdv')}",
+                               backend="nccl", timeout=DP_TIMEOUT, device=dev)
+        try:
+            if dist.get_backend() != "nccl" or not mesh.in_group():
+                fail(f"[21 dp] no NCCL group: backend {dist.get_backend()}")
+            one, _ = dp_parity_step(dev)
+            for k, tol in TRAIN_PARITY_RTOL.items():
+                if not abs(one[k] - want[k]) <= tol * abs(want[k]):
+                    fail(f"[21 dp] float32 step, NCCL group of one vs no group, {k}: {one[k]} vs "
+                         f"{want[k]} (rtol {tol})")
+            cfg = Config()
+            st = create_train_state(cfg, dev, seed=SEED)
+            step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(
+                make_procedural_occluders(64, 96), dev))
+            tb = batch_to_device(train_batch(np.random.RandomState(SEED + 21), N3D, N2D, TILE, 256,
+                                             64), dev)
+            times = dp_step_times(step, st, tb)
+            del st, step, tb
+        finally:
+            dist.destroy_process_group()
+        print(f"[21 dp] NCCL group of one in this process: the float32 step within "
+              f"TRAIN_PARITY_RTOL of the step without a group (rel diff "
+              + ", ".join(f"{k} {abs(one[k] - want[k]) / abs(want[k]):.1e}"
+                          for k in TRAIN_PARITY_RTOL)
+              + f"); Config() bf16 B={N3D + N2D}, informative: {fmt_times(times)}; without a "
+              f"group (phase 12) {resident_step_ms:.1f} ms  [{card}]")
+        if torch.cuda.device_count() >= 2:
+            os.makedirs(os.path.join(tmp, "nccl"))
+            nccl = spawn_ranks("nccl", 2, os.path.join(tmp, "nccl"))
+            if len({out["digest"] for out in nccl}) != 1:
+                fail("[21 dp] the NCCL ranks' states differ")
+            print(f"[21 dp] 2 ranks, NCCL, one card each: states equal; informative: "
+                  f"{fmt_times(nccl[0]['times'])}  [{card}]")
+        else:
+            print(f"[21 dp] NCCL with 2 ranks not run: this machine has "
+                  f"{torch.cuda.device_count()} card")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[21 dp] phase time {time.perf_counter() - t_phase:.1f} s")
+    total = {k: sum(out["launches"][k] for out in outs) for k in outs[0]["launches"]}
+    total["warp_unit"] = sum(out["warp_forms"]["unit_float32"] for out in outs)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":  # a rank of phase 21
+        backend, rank, world, tmp = sys.argv[2:6]
+        return dp_rank(backend, int(rank), int(world), tmp)
     from metro_pose3d_tpu_torch.config import Config, apply_overrides
     from metro_pose3d_tpu_torch.geom.joints import H36M_17
     from metro_pose3d_tpu_torch.evaluation.engine import TILE_KEYS, PoseEstimator
@@ -3190,6 +3561,7 @@ def main() -> int:
     feed = phase_feed(rng, dev, card, resident_ms["no background bank"])  # 18
     dataset = phase_dataset(dev, card)  # 19
     mp = phase_multiperson(rng, dev, card)  # 20
+    dp = phase_dp(dev, card, resident_ms["no background bank"])  # 21
     int8_records[0]["launches"] += dataset["qk1"] + mp["qk1"]
     int8_records[1]["launches"] += dataset["qk2"] + mp["qk2"]
 
@@ -3213,12 +3585,13 @@ def main() -> int:
     record = {"kernels": [
         kernel("maxpool3x3s2_same", "maxpool3x3s2.cu", pallas_pool,
                launches["pool"] + train_launches["pool"] + fam_launches["d_twofive"]["pool_same"]
-               + int8_path["pool"] + feed["pool"] + dataset["pool"] + mp["pool"],
+               + int8_path["pool"] + feed["pool"] + dataset["pool"] + mp["pool"] + dp["pool"],
                pool_err, pool_ms, pool_plain_ms, pool_bound, None,
                bound_share=pool_bound[0] / pool_ms, two_calls_ms=pool_two_calls_ms,
                ms_scalar=pool_scalar_ms),
         kernel("maxpool3x3s2_same_bwd", "maxpool3x3s2_bwd.cu", pallas_pool,
-               train_launches["pool_bwd"] + feed["pool_bwd"] + mp["pool_bwd"], bwd_err, bwd_ms,
+               train_launches["pool_bwd"] + feed["pool_bwd"] + mp["pool_bwd"] + dp["pool_bwd"],
+               bwd_err, bwd_ms,
                bwd_plain_ms, bwd_bound, None,
                bound_share=bwd_bound[0] / bwd_ms, ms_relu=bwd_relu_ms, ms_scalar=bwd_scalar_ms),
         *[kernel(f"maxpool3x3s2_{mode}" + ("_bwd" if way == "bwd" else ""),
@@ -3230,7 +3603,7 @@ def main() -> int:
           for (mode, way), r in modes.items()],
         kernel("warp_crop", "warp_crop.cu", "metro_pose3d_tpu/ops/warp_pallas.py:415",
                launches["warp"] + train_launches["warp"] + int8_path["warp"] + feed["warp"]
-               + dataset["warp"] + mp["warp"],
+               + dataset["warp"] + mp["warp"] + dp["warp"],
                warp_max, none["ms"],
                none["plain_ms"],
                (none["bound_ms"], none["bound_by"]), None, call_ms=none["call_ms"],
@@ -3239,10 +3612,12 @@ def main() -> int:
                                                 + int8_path["warp_forms"][e, d]
                                                 + feed["warp_forms"].get((e, d), 0)
                                                 + dataset["warp_forms"].get((e, d), 0)
-                                                + mp["warp_forms"][e, d]}
+                                                + mp["warp_forms"][e, d]
+                                                + (dp["warp_unit"] if e == "unit" else 0)}
                       for (e, d), r in warp_forms.items()}),
         kernel("occluder_paste", "occluder_paste.cu", "metro_pose3d_tpu/ops/warp_pallas.py:507",
-               train_launches["occluder"] + feed["occluder"] + mp["occluder"], occ_err, occ_ms,
+               train_launches["occluder"] + feed["occluder"] + mp["occluder"] + dp["occluder"],
+               occ_err, occ_ms,
                occ_plain_ms, occ_bound, None),
         *probe_records,
         *int8_records,

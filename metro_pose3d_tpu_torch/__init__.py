@@ -1,7 +1,8 @@
 """metro_pose3d_tpu_torch: the PyTorch + CUDA port of metro_pose3d_tpu.
 
-The single-person serving path and the single-process training path run
-here on an NVIDIA Hopper GPU: uint8 crops (or uint8 source tiles and warp
+The single-person serving path and the training path, in one process or
+data-parallel over a `torch.distributed` group (`parallel/`), run here on
+NVIDIA Hopper GPUs: uint8 crops (or uint8 source tiles and warp
 parameters) -> ResNet (v2 or v1.5, bottleneck or basic block, SAME, torch
 or Keras padding) with a dilated final stage -> metric volumetric (or 2.5D)
 and 2D heatmap heads -> soft-argmax -> flip TTA -> absolute reconstruction;

@@ -10,7 +10,9 @@ device: the loader prepares source tiles on the host, K1 warps and
 normalizes them on the device, then the backbone, heads, TTA, bone-length
 rescale and absolute reconstruction run in one call per batch. Where
 `torch.distributed` is initialized, each process takes a contiguous block of
-the test split (`host_block`) and dumps it with its `example_offset`.
+the test split (`host_block`) and dumps it with its `example_offset`;
+`gather_predictions` concatenates the blocks on rank 0 into the dump one
+process makes.
 
 `predict_multiperson_dataset` is the frame-wise protocol (3DPW): each test
 frame's boxes through `multiperson.MultiPersonEstimator.estimate_stream`,
@@ -29,6 +31,7 @@ import torch
 from metro_pose3d_tpu_torch.config import Config, apply_matmul_precision
 from metro_pose3d_tpu_torch.evaluation.engine import TILE_KEYS, make_predict_fn
 from metro_pose3d_tpu_torch.multiperson import MultiPersonEstimator
+from metro_pose3d_tpu_torch.parallel.distributed import process_index_count
 from metro_pose3d_tpu_torch.pipeline.loader import batch_iterator, prefetch
 
 log = logging.getLogger("metro_torch.predict")
@@ -62,15 +65,6 @@ def host_block(n_total: int, host_id: int, host_count: int) -> tuple:
     per = -(-n_total // host_count)
     offset = min(host_id * per, n_total)
     return offset, min(per, n_total - offset)
-
-
-def process_index_count() -> tuple:
-    """(rank, world size) of `torch.distributed`, or (0, 1) where it is not
-    initialized."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 def compute_mean_bones(dataset, n_examples: int = 512) -> np.ndarray:
@@ -217,6 +211,29 @@ def predict_dataset(
     result["joint_names"] = np.array(ji.names)
     result["example_offset"] = np.int64(offset)
     return result
+
+
+def gather_predictions(result: dict):
+    """The processes' `predict_dataset` blocks concatenated in rank order on
+    rank 0 -> the single-process dump there (`example_offset` 0), None on
+    the other ranks; `result` itself without a process group. A block that
+    holds no rows (a late process) adds nothing, and a key goes into the
+    dump only where every block with rows has it (`univ_scale`)."""
+    rank, world = process_index_count()
+    if world == 1:
+        return result
+    blocks = [None] * world if rank == 0 else None
+    torch.distributed.gather_object(result, blocks, dst=0)
+    if rank != 0:
+        return None
+    full = [b for b in blocks if "gt3d_abs" in b]
+    if not full:
+        return blocks[0]
+    keys = set.intersection(*(set(b) for b in full)) - {"joint_names", "example_offset"}
+    merged = {k: np.concatenate([b[k] for b in full]) for k in full[0] if k in keys}
+    merged["joint_names"] = blocks[0]["joint_names"]
+    merged["example_offset"] = np.int64(0)
+    return merged
 
 
 def predict_multiperson_dataset(cfg: Config, model, dataset, n_frames: int | None = None,

@@ -13,6 +13,9 @@ score, multi-person prediction, the truncation table and export.
 
 Config overrides are dotted flags (`--section.field=value`, see config.py);
 `--train` dumps the whole config into the logdir. The model runs on the GPU.
+Data-parallel training over N processes, one a card:
+
+  torchrun --nproc_per_node=N -m metro_pose3d_tpu_torch.main --train ...
 """
 from __future__ import annotations
 
@@ -76,8 +79,30 @@ def _load_model(cfg, dataset=None, device=None):
 def main(argv=None, device=None) -> int:
     """Run the mode that `argv` (default: the command line) names; prints
     this module's usage and returns 1 without one. The model runs on the card
-    unless `device` names another ("cpu" in the tests)."""
+    unless `device` names another ("cpu" in the tests).
+
+    First the process joins the job that a launcher describes
+    (`parallel.distributed.initialize_distributed`: under `torchrun
+    --nproc_per_node=N` every process is a rank; without a launcher's
+    environment it does nothing); the group it made ends with the mode.
+    Under a group, `--train` trains data-parallel, `--test` predicts a block
+    of the split on each rank and rank 0 writes the gathered dump, and the
+    other modes run on rank 0 alone."""
+    from metro_pose3d_tpu_torch.parallel.distributed import initialize_distributed
+
+    created = initialize_distributed(device=device)
+    try:
+        return _run_mode(argv, device)
+    finally:
+        if created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run_mode(argv, device) -> int:
     from metro_pose3d_tpu_torch.config import apply_matmul_precision, parse_cli
+    from metro_pose3d_tpu_torch.parallel.distributed import process_index_count
 
     cfg, rest = parse_cli(sys.argv[1:] if argv is None else argv)
     modes = {a for a in rest if a.startswith("--")}
@@ -93,17 +118,23 @@ def main(argv=None, device=None) -> int:
 
     if "--test" in modes:
         from metro_pose3d_tpu_torch.evaluation.predict import (
-            _check_joint_count, predict_dataset, save_predictions,
+            _check_joint_count, gather_predictions, predict_dataset, save_predictions,
         )
 
         dataset = _get_dataset(cfg, cfg.data.dataset)
         # before calibration: a skeleton mismatch fails before minutes of work
         _check_joint_count(cfg, dataset.joint_info)
-        result = predict_dataset(cfg, _load_model(cfg, dataset, device), dataset)
-        path = cfg.eval.pred_path or f"{cfg.train.logdir}/predictions.npz"
-        save_predictions(result, path)
-        print(f"saved predictions to {path}")
+        # each rank its block; rank 0 writes them all
+        result = gather_predictions(
+            predict_dataset(cfg, _load_model(cfg, dataset, device), dataset))
+        if result is not None:
+            path = cfg.eval.pred_path or f"{cfg.train.logdir}/predictions.npz"
+            save_predictions(result, path)
+            print(f"saved predictions to {path}")
         return 0
+
+    if process_index_count()[0] != 0:
+        return 0  # the other modes are one process's work, which rank 0 does
 
     scorers = {"--eval-h36m": "eval_h36m", "--eval-3dhp": "eval_3dhp", "--eval-3dpw": "eval_3dpw"}
     for mode, module in scorers.items():

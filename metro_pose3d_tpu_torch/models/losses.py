@@ -12,7 +12,8 @@ L1 plus 2D L1, masked per joint and per example for mixed 2D/3D batches.
   * `model_class="twofive"` (the 2.5D baseline): the 3D term is instead the
     L1 of x, y in crop pixels / `proc_side` plus the L1 of root-relative z /
     `box_size_mm`, the z term's root row multiplied by 0; no absolute loss.
-Each term is a validity-weighted mean, safe when the mask is empty.
+Each term is a validity-weighted mean, safe when the mask is empty, over
+the global batch where a `torch.distributed` process group is up.
 """
 from __future__ import annotations
 
@@ -22,11 +23,17 @@ from metro_pose3d_tpu_torch.config import Config
 from metro_pose3d_tpu_torch.models.metro import get_decoder
 from metro_pose3d_tpu_torch.ops.decode import root_relative
 from metro_pose3d_tpu_torch.ops.pose3d import reconstruct_absolute
+from metro_pose3d_tpu_torch.parallel import mesh
 
 
 def _masked_mean(err, mask):
-    """Mean of `err` [B, J] under `mask` [B, J]; 0 when the mask is empty."""
-    return (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    """Mean of `err` [B, J] under `mask` [B, J]; 0 when the mask is empty.
+    Where a process group is up, the mean over the global batch, as the JAX
+    package's over its data mesh: the sum and the count of valid entries
+    are summed over the ranks (the sum with gradients), so ranks that hold
+    other numbers of valid joints weigh as their joints do."""
+    total, count = mesh.global_sum(torch.stack([(err * mask).sum(), mask.sum()]))
+    return total / torch.clamp(count, min=1.0)
 
 
 def compute_losses(logits3d, logits2d, batch, cfg: Config, root_index: int = 0):

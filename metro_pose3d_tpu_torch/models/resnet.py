@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from metro_pose3d_tpu_torch.config import ModelConfig
 from metro_pose3d_tpu_torch.ops.pool import stem_max_pool
+from metro_pose3d_tpu_torch.parallel import mesh
 
 RESNET_DEPTHS = {
     "resnet50": (3, 4, 6, 3),
@@ -105,6 +106,12 @@ class BatchNorm(nn.Module):
     package) each group of examples normalises with its own moments, in that
     module's order and without the clip, and the running statistics get the
     full-batch moments composed from the groups.
+    Where a `torch.distributed` process group is up, "the batch" is the
+    global batch, as under the JAX package's data mesh: the moments are
+    summed over the ranks (`parallel/mesh.py`), so the running statistics
+    stay the same on every rank. Ghost BN groups stay on their rank; a group
+    that would span ranks raises ValueError. Without a group no collective
+    is issued.
     """
 
     def __init__(self, c: int, eps: float, momentum: float = 0.99, group_size: int = 0,
@@ -126,9 +133,8 @@ class BatchNorm(nn.Module):
         if self.group_size > 0:
             y, mean, var = self._ghost(xf)
         else:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.maximum((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                                torch.zeros_like(mean))
+            mean, mean2 = self._moments(xf)
+            var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
             mul = torch.rsqrt(var + self.eps) * self.scale
             y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         with torch.no_grad():
@@ -137,11 +143,36 @@ class BatchNorm(nn.Module):
             self.var.copy_(m * self.var + (1 - m) * var)
         return y.to(self.dtype)
 
+    @staticmethod
+    def _moments(xf):
+        """-> (mean(x), mean(x^2)) per channel over the batch: the global
+        batch where a process group is up (each rank's sums, summed over the
+        ranks with gradients, over the global count)."""
+        if not mesh.in_group():
+            return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+        c = xf.shape[1]
+        count = xf.new_full((1,), float(xf.numel() // c))
+        sums = mesh.global_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                          (xf * xf).sum(dim=(0, 2, 3)), count]))
+        return sums[:c] / sums[-1], sums[c:-1] / sums[-1]
+
     def _ghost(self, xf):
-        """-> (normalised x, full-batch mean, full-batch variance)."""
+        """-> (normalised x, full-batch mean, full-batch variance). Under a
+        process group the groups stay on their rank, and the running
+        statistics take the moments of every group of every rank. Under more
+        than one rank a group size above the local batch raises, since that
+        group would span ranks (JAX's `min(group_size, global batch)` makes
+        it one group of several ranks' rows); a size at or above the batch
+        means one group of all of it only in a single process."""
         b = xf.shape[0]
-        gs = min(self.group_size, b)
+        world = mesh.process_index_count()[1]
+        gs = min(self.group_size, b * world)
         if b % gs:
+            if world > 1:
+                raise ValueError(
+                    f"a bn group of {gs} rows would span ranks: the local batch of {b} "
+                    f"rows on each of {world} ranks is not a multiple of it (global "
+                    f"batch {b * world}); ghost batch norm groups must lie within a rank")
             raise ValueError(f"batch {b} not divisible by bn group size {gs}")
         xg = xf.reshape(b // gs, gs, *xf.shape[1:])
         gmean = xg.mean(dim=(1, 3, 4))  # [G, C]
@@ -151,8 +182,15 @@ class BatchNorm(nn.Module):
         var = gvar.repeat_interleave(gs, dim=0)[:, :, None, None]
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * self.scale.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
-        full_mean = gmean.mean(dim=0)
-        return y, full_mean, gmean2.mean(dim=0) - full_mean * full_mean
+        if not mesh.in_group():
+            full_mean = gmean.mean(dim=0)
+            return y, full_mean, gmean2.mean(dim=0) - full_mean * full_mean
+        with torch.no_grad():
+            c = xf.shape[1]
+            n_groups = xf.new_full((1,), float(b // gs))
+            sums = mesh.global_sum(torch.cat([gmean.sum(dim=0), gmean2.sum(dim=0), n_groups]))
+            full_mean = sums[:c] / sums[-1]
+            return y, full_mean, sums[c:-1] / sums[-1] - full_mean * full_mean
 
 
 QUANTIZE_LAYOUTS = ("nhwc", "nchw")

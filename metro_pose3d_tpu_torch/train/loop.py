@@ -3,6 +3,7 @@
     device_augment(train=True)  K1 warp, K2 occluder paste, colour jitter
     -> MetroModel in train mode  batch-statistics BN, K3 pool and its backward
     -> compute_losses -> backward
+    -> gradient mean over ranks  where a process group is up
     -> global-norm clip          as optax writes it, no epsilon
     -> Adam                      rate from the schedule at the update count
 
@@ -21,6 +22,7 @@ import torch
 
 from metro_pose3d_tpu_torch.config import Config
 from metro_pose3d_tpu_torch.models.losses import compute_losses
+from metro_pose3d_tpu_torch.parallel import mesh
 from metro_pose3d_tpu_torch.pipeline.device import device_augment
 
 
@@ -81,13 +83,28 @@ def make_train_step(cfg: Config, root_index: int = 0, occluder_bank=None,
     no background replacement); a batch that carries "source_mask" and
     "bg_params" is composited onto it before the warp. Metrics
     are device scalars: loss, loss3d, loss2d (loss_abs with the absolute
-    loss on) and grad_norm, the global norm of the unclipped gradients."""
+    loss on) and grad_norm, the global norm of the unclipped gradients.
+
+    Where a `torch.distributed` process group is up, `batch` holds this
+    rank's rows of the global batch and the step is data-parallel, as the
+    JAX package's step over its mesh: batch norm and the losses take the
+    global batch, the gradients are averaged over the ranks in one
+    collective before the norm and the clip (`parallel/mesh.py`), and Adam
+    takes the same step on every rank. The first call checks that the
+    ranks start from the same state. The augmentation stays per rank."""
     proc_side = cfg.model.proc_side
     clip = cfg.train.grad_clip_norm
     sched = make_lr_schedule(cfg)
 
+    checked = False
+
     def step(state, batch: dict) -> dict:
+        nonlocal checked
         model, opt = state.model, state.optimizer
+        parallel = mesh.in_group()
+        if parallel and not checked:
+            mesh.check_replicas(state.step, model)
+            checked = True
         model.train()
         with torch.no_grad():
             crops = device_augment(batch, proc_side, train=True, occluder_bank=occluder_bank,
@@ -96,7 +113,10 @@ def make_train_step(cfg: Config, root_index: int = 0, occluder_bank=None,
         logits3d, logits2d = model(crops)
         total, parts = compute_losses(logits3d, logits2d, batch, cfg, root_index)
         total.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if parallel:
+            grads = mesh.average_gradients_(model.parameters())
+        else:
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
         norm = torch.nn.utils.get_total_norm(grads)  # optax.global_norm
         if clip > 0:
             clip_by_global_norm_(grads, clip, norm)

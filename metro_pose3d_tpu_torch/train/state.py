@@ -32,14 +32,19 @@ class TrainState:
                 "adam": {names[i]: dict(s) for i, s in opt.items()}}
 
     def load_state_dict(self, d: dict) -> None:
-        """Load `state_dict()`'s layout; every name must match."""
+        """Load `state_dict()`'s layout; every name must match. `d` is copied:
+        training the state leaves it as it was."""
         self.model.load_state_dict(d["model"], strict=True)
         index = {name: i for i, (name, _) in enumerate(self.model.named_parameters())}
         unknown = set(d["adam"]) - set(index)
         if unknown:
             raise KeyError(f"Adam state for unknown parameters: {sorted(unknown)[:5]}")
         opt = self.optimizer.state_dict()
-        opt["state"] = {index[name]: dict(s) for name, s in d["adam"].items()}
+        # copies: the optimizer keeps the tensors it is given where their
+        # dtype and device fit, and would update `d`'s in place
+        opt["state"] = {index[name]: {k: v.clone() if torch.is_tensor(v) else v
+                                      for k, v in s.items()}
+                        for name, s in d["adam"].items()}
         # casts and moves each tensor as this optimizer keeps it
         self.optimizer.load_state_dict(opt)
         self.step = int(d["step"])

@@ -1,4 +1,5 @@
-"""Single-process training loop (`metro_pose3d_tpu/train/trainer.py`):
+"""Training loop (`metro_pose3d_tpu/train/trainer.py`), in one process or
+data-parallel over the processes of a `torch.distributed` process group:
 feeds the step from datasets through the host input pipeline, runs it, and
 keeps the books: `config.json`, the metric writer (`utils/writers.py`:
 `history.jsonl`, appended at every log step and validation, and TensorBoard
@@ -25,12 +26,16 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from metro_pose3d_tpu_torch.config import Config, apply_matmul_precision, config_to_json
 from metro_pose3d_tpu_torch.device import resolve_device
 from metro_pose3d_tpu_torch.evaluation.metrics import mpjpe
 from metro_pose3d_tpu_torch.evaluation.predict import make_dataset_predict_fn, predict_dataset
 from metro_pose3d_tpu_torch.models.metro import MetroModel
+from metro_pose3d_tpu_torch.parallel.distributed import (
+    in_group, local_batch_slice, process_index_count,
+)
 from metro_pose3d_tpu_torch.pipeline.backgrounds import get_background_bank
 from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
 from metro_pose3d_tpu_torch.pipeline.loader import batch_iterator, prefetch, stack_examples
@@ -45,9 +50,14 @@ log = logging.getLogger("metro_torch.train")
 
 
 def mixed_batch_iterator(cfg: Config, dataset, dataset2d=None, n_backgrounds=0,
-                         skip_batches=0, n_occluders=1):
+                         skip_batches=0, n_occluders=1, host_id=0, host_count=1):
     """Yield host batches: `train.batch_size` 3D rows (+ `batch_size_2d`
     2D rows remapped by joint name when an auxiliary 2D dataset is given).
+    The two sizes are global: process `host_id` of `host_count` prepares
+    `size / host_count` rows of each from its share of the examples, in the
+    order [3D rows, 2D rows]; the global batch is the processes' batches in
+    process order, as the JAX package's. Sizes the processes cannot split
+    evenly raise ValueError.
     `n_backgrounds` > 0 adds green-screen mask/params rows to EVERY batch
     (maskless examples get a no-op all-foreground mask). `skip_batches`
     passes over the first batches of the schedule without preparing them
@@ -57,9 +67,11 @@ def mixed_batch_iterator(cfg: Config, dataset, dataset2d=None, n_backgrounds=0,
     ji = dataset.joint_info
 
     def loader(ds, batch_size, seed):
+        per, _ = local_batch_slice(batch_size, host_id, host_count)
         return batch_iterator(
-            ds.train_example, ds.n_train, ds.joint_info, batch_size, cfg.model.proc_side,
+            ds.train_example, ds.n_train, ds.joint_info, per, cfg.model.proc_side,
             cfg.data.source_side, aug_cfg=cfg.aug, seed=seed, n_workers=cfg.data.workers,
+            host_id=host_id, host_count=host_count,
             n_backgrounds=n_backgrounds, skip_batches=skip_batches, n_occluders=n_occluders,
             pool_type=cfg.data.pool_type, host_prep=cfg.data.host_prep)
 
@@ -134,6 +146,12 @@ def train(cfg: Config, dataset, dataset2d=None, max_steps: Optional[int] = None,
     `train.validate_every` steps the current weights are validated on
     `dataset`'s test split (`validate`). device: default the card; a
     RuntimeError where CUDA is absent.
+
+    Where a `torch.distributed` process group is up
+    (`parallel.distributed.initialize_distributed`), every process calls
+    this and trains data-parallel: it prepares its share of the global
+    batch (`mixed_batch_iterator`), the step reduces over the ranks
+    (`train.loop.make_train_step`), and process 0 alone writes the logdir.
     """
     _check_supported(cfg)
     device = resolve_device(device)
@@ -144,10 +162,13 @@ def train(cfg: Config, dataset, dataset2d=None, max_steps: Optional[int] = None,
         bg_bank = get_background_bank(background_root or cfg.data.background_root or None,
                                       side=cfg.data.source_side)
 
+    rank, world = process_index_count()
+
     def feed(skip_batches):
         return mixed_batch_iterator(
             cfg, dataset, dataset2d, n_backgrounds=0 if bg_bank is None else len(bg_bank),
-            skip_batches=skip_batches, n_occluders=len(occluder_bank))
+            skip_batches=skip_batches, n_occluders=len(occluder_bank), host_id=rank,
+            host_count=world)
 
     root = dataset.joint_info.names.index(dataset.root_joint)
     return _run(cfg, feed, occluder_bank, bg_bank, max_steps, root, device, dataset)
@@ -167,7 +188,8 @@ def _train_on_batches(cfg: Config, batches: Iterator[dict],
     would build; otherwise none is built or used. On resume the first
     `start_step` batches of `batches` are discarded. val_dataset: the
     dataset that in-loop validation predicts, needed where
-    `train.validate_every` falls within the run.
+    `train.validate_every` falls within the run. Under a process group each
+    process passes its own rows of every global batch.
     """
     _check_supported(cfg)
     batches = iter(batches)
@@ -192,7 +214,13 @@ def _run(cfg: Config, feed: Callable[[int], Iterator[dict]], occluder_bank: np.n
          device: torch.device, val_dataset=None):
     """The loop of `train`: `feed(k)` gives the host batches from the k-th
     on (k = the restored step, or 0 with `data.cycle_batches`);
-    `val_dataset` is the dataset that validation predicts."""
+    `val_dataset` is the dataset that validation predicts.
+
+    Under a process group process 0 alone writes `config.json`, the metric
+    writer, `history.json`, the checkpoints (every process waits at a
+    barrier after each save) and the profile; every process restores the
+    same checkpoint, validates the same examples and keeps process 0's
+    validation MPJPE, so that all take the same best-checkpoint decision."""
     t = cfg.train
     total = min(t.num_steps, max_steps or t.num_steps)
     validating = bool(t.validate_every) and t.validate_every <= total
@@ -200,9 +228,12 @@ def _run(cfg: Config, feed: Callable[[int], Iterator[dict]], occluder_bank: np.n
         raise ValueError(f"train.validate_every={t.validate_every} falls within the run's "
                          f"{total} steps, but no dataset to validate on was given")
     apply_matmul_precision(cfg)
+    parallel = in_group()
+    primary = process_index_count()[0] == 0
     os.makedirs(t.logdir, exist_ok=True)
-    with open(os.path.join(t.logdir, "config.json"), "w") as f:
-        f.write(config_to_json(cfg))
+    if primary:
+        with open(os.path.join(t.logdir, "config.json"), "w") as f:
+            f.write(config_to_json(cfg))
 
     state = create_train_state(cfg, device)
     ckpt = Checkpointer(t.logdir, t.keep_checkpoints)
@@ -237,8 +268,9 @@ def _run(cfg: Config, feed: Callable[[int], Iterator[dict]], occluder_bank: np.n
 
     lr_sched = make_lr_schedule(cfg)
     history = _prior_history(t.logdir, start_step) if start_step else []
-    writer = make_metric_writer(t.logdir)
-    prof_at = start_step + 3 if t.profile_steps > 0 else None  # past the first steps
+    writer = make_metric_writer(t.logdir, primary)
+    # past the first steps
+    prof_at = start_step + 3 if t.profile_steps > 0 and primary else None
     prof = None
     t_last, n_since, wait = time.perf_counter(), 0, 0.0
     try:
@@ -276,28 +308,38 @@ def _run(cfg: Config, feed: Callable[[int], Iterator[dict]], occluder_bank: np.n
                 history.append({"step": done, **scalars})
                 t_last, n_since, wait = time.perf_counter(), 0, 0.0
             if done % t.checkpoint_every == 0 or done == total:
-                ckpt.save(done, state)
+                if primary:
+                    ckpt.save(done, state)
+                if parallel:
+                    dist.barrier()
 
             if t.validate_every and done % t.validate_every == 0:
                 t_val = time.perf_counter()
                 if val_model is not None:
                     val_model.load_state_dict(state.model.state_dict())
                 val = validate(cfg, val_model or state.model, val_dataset, predict_fn=val_fn)
+                if parallel:  # process 0's reading decides for all
+                    val_t = torch.tensor([val], dtype=torch.float64, device=device)
+                    dist.broadcast(val_t, src=0)
+                    val = float(val_t)
                 val_s = time.perf_counter() - t_val
                 t_last += val_s  # the logged rates count training only
                 log.info("step %d validation MPJPE %.2f mm (%.1f s)", done, val, val_s)
                 writer.write_scalars(done, {"val_mpjpe": val})
                 history.append({"step": done, "val_mpjpe": val})
-                if ckpt.save_if_best(done, state, val):
+                if primary and ckpt.save_if_best(done, state, val):
                     log.info("step %d new best checkpoint (%.2f mm)", done, val)
+                if parallel:
+                    dist.barrier()
     finally:
         _close(src)
         writer.close()
     if prof is not None:  # the run ended inside the traced window
         _stop_profiler(prof, device, t.logdir)
     ckpt.wait()
-    with open(os.path.join(t.logdir, "history.json"), "w") as f:
-        json.dump(history, f)
+    if primary:
+        with open(os.path.join(t.logdir, "history.json"), "w") as f:
+            json.dump(history, f)
     return state
 
 
