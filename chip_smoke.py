@@ -148,8 +148,7 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              and 20 QK2 launches a batch), `eval_h36m`, its MPJPE within 5% of
              the float one, and the first 4 test examples through it in
              float32 on the card and on the CPU (QK1/QK2's plain twins)
-             within INT8_PARITY_TOL; and whether the CUDA toolkit ships nvJPEG
-             (`nvjpeg.h`, `libnvjpeg.so*`), reported only
+             within INT8_PARITY_TOL
  20 multi    the multi-person frame path and the command line:
              `MultiPersonEstimator` (Config(): R50@256 bf16, TTA, frame mode,
              the default buckets) on a synthetic 720p sequence of 48 frames of
@@ -187,6 +186,30 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              ranks where the machine has two cards. A rank that fails, or a
              spawn that outlasts DP_TIMEOUT, fails the phase after every rank
              is killed
+ 22 real     real files on a machine without libjpeg or cv2, from the
+             fixtures of `tests/fixtures/real_files/`: `improc.jpeg_backend()`
+             must be nvJPEG (`native/nvjpegdec.cu`, built with nvcc; its path
+             and version printed); every fixture JPEG (4:4:4, 4:2:2, 4:2:0,
+             gray, progressive, restart interval, 37x53, 1000x1000 frame and
+             mask) decoded by nvJPEG, colour and gray, within NVJPEG_CEILINGS
+             (max 16, mean 1.0 levels) of its stored libjpeg pixels, with the
+             share of pixels more than a level apart; the 1000x1000 frame's
+             decode ms, one at a time and through `decode_jpeg_batch` on 4
+             threads, and the device memory of a process that has decoded
+             one (informative); the VOC occluder bank and the background bank
+             from the fixture trees through nvJPEG, against the banks built
+             from the stored libjpeg pixels (their tile counts and sha256
+             fixed on the CPU, REAL_BANKS); `predict_dataset` (Config(),
+             R50@256 bf16, TTA) on an H36M-layout shard of 128 copies of the
+             1000x1000 JPEG, first pass and cached, against the same shard
+             framed as PNGs of libjpeg's pixels (the predictions' largest
+             difference in mm and px, informative), K1 normalize bf16 and K3
+             once a pass; then `train()` at Config() for 3 steps on a
+             3DHP-layout shard of JPEG frames and a JPEG mask with
+             `data.occluder_root` and `data.background_root` the fixture
+             trees: the VOC bank of 6 tiles and the background bank of 4, a
+             composite at every step, finite losses, K1 unit, K2, K3 and K3's
+             backward launched once a step
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -2203,31 +2226,6 @@ def write_png_shard(root: str, threads: int = 8) -> dict:
             "first_image": done[0][2]}
 
 
-def nvjpeg_finding() -> str:
-    """Whether the CUDA toolkit ships nvJPEG: `nvjpeg.h` and `libnvjpeg.so*`
-    under CUDA_HOME, CUDA_PATH or nvcc's prefix (reported, nothing built)."""
-    import glob
-
-    from metro_pose3d_tpu_torch.kernels import build
-
-    roots = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")]
-    try:
-        roots.append(os.path.dirname(os.path.dirname(os.path.realpath(build._nvcc()))))
-    except Exception as e:  # noqa: BLE001 -- reported, not raised: the finding is the output
-        roots.append(None)
-        print(f"[19 dataset] nvcc not found for the nvJPEG search: {e}")
-    roots = sorted({r for r in roots if r and os.path.isdir(r)})
-    headers, libs = [], []
-    for r in roots:
-        headers += glob.glob(os.path.join(r, "include", "nvjpeg.h"))
-        headers += glob.glob(os.path.join(r, "targets", "*", "include", "nvjpeg.h"))
-        for sub in ("lib64", "lib", os.path.join("targets", "*", "lib")):
-            libs += glob.glob(os.path.join(r, sub, "libnvjpeg.so*"))
-    found = "found" if headers and libs else "NOT found"
-    return (f"nvJPEG {found} under {roots}: nvjpeg.h {sorted(set(headers)) or 'none'}, "
-            f"libnvjpeg.so* {sorted(set(libs)) or 'none'}")
-
-
 def phase_dataset(dev, card) -> dict:
     """19: the --test protocol path: a PNG-framed H36M-layout shard ->
     `get_dataset("h36m")` -> `predict_dataset` (R50@256 bf16, flip TTA,
@@ -2235,8 +2233,7 @@ def phase_dataset(dev, card) -> dict:
     -> `save_predictions` -> `eval_h36m`; the card against the CPU on 8 test
     examples in float32; the int8 leg (`calibrate_on_dataset` on 2 batches,
     predict, score, and its float32 card against CPU on INT8_PARITY_N test
-    examples); the nvJPEG finding. -> the K1, K3, QK1 and QK2 launches
-    of its predict runs."""
+    examples). -> the K1, K3, QK1 and QK2 launches of its predict runs."""
     from metro_pose3d_tpu_torch.config import Config, apply_overrides
     from metro_pose3d_tpu_torch.data.datasets import get_dataset
     from metro_pose3d_tpu_torch.evaluation import eval_h36m
@@ -2424,7 +2421,6 @@ def phase_dataset(dev, card) -> dict:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"[19 dataset] {nvjpeg_finding()}")
     print(f"[19 dataset] phase time {time.perf_counter() - t_phase:.1f} s")
     legs = (fp_launches, calib_launches, int8_launches)
     forms = {}
@@ -3128,6 +3124,375 @@ def phase_dp(dev, card, resident_step_ms) -> dict:
     return total
 
 
+# --- phase 22: real files: JPEG through nvJPEG, the VOC and background banks ------
+
+REAL_FILES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                          "real_files")  # written by tests/fixtures/make_real_files.py
+REAL_JPEGS = ("s444", "s422", "s420", "gray", "progressive", "restart", "odd_37x53",
+              "frame_1000", "mask_1000")
+# nvJPEG against the fixtures' libjpeg pixels, in levels of [0, 255]: the
+# largest and the mean absolute difference. They catch swapped channels, a
+# wrong chroma siting or a missed colour conversion; they do not pretend to
+# know nvJPEG's IDCT and upsampling rounding
+NVJPEG_CEILINGS = (16, 1.0)
+# the banks that the loaders build from the fixtures' libjpeg pixels on this
+# host: their tile counts (tests/test_torch_real_files.py fixes them on the
+# CPU) and the sha256 of their bytes there (uint8 and float32 alike: the
+# C resize is held to cv2 bit for bit on those branches)
+REAL_BANKS = {"voc": (6, "5fa191ec9090d56f"), "backgrounds": (4, "ab9e58b791f8c928")}
+REAL_FRAME_SEED = 0  # frame_1000 renders the synthetic example 0 of this seed
+# frames of the H36M-layout JPEG shard: 1 batch to predict, and train rows
+# for the bone lengths; the 3DHP-layout shard has a training batch of rows
+REAL_TEST_N, REAL_TRAIN_N = 128, 16
+REAL_TRAIN_STEPS = 3
+
+
+@contextlib.contextmanager
+def libjpeg_pixels(improc):
+    """`improc.imread` gives each fixture JPEG's stored libjpeg pixels
+    (`<stem>.rgb.png` beside it, or under `backgrounds_pixels/`); other
+    files, and JPEGs without stored pixels, read as before."""
+    real = improc.imread
+
+    def imread(path):
+        p = str(path)
+        if p.lower().endswith(".jpg"):
+            stem = os.path.splitext(os.path.basename(p))[0]
+            for cand in (p[:-4] + ".rgb.png", os.path.join(
+                    os.path.dirname(os.path.dirname(p)), "backgrounds_pixels", stem + ".rgb.png")):
+                if os.path.exists(cand):
+                    return real(cand)
+        return real(path)
+
+    improc.imread = imread
+    try:
+        yield
+    finally:
+        improc.imread = real
+
+
+def write_real_shard(root: str, layout: str, ext: str, n_train: int) -> str:
+    """An H36M- or 3DHP-layout shard (the `scripts/prepare_*.py` layouts)
+    under `root` whose every frame is a copy of the committed 1000x1000
+    frame: the JPEG (`ext` "jpg") or its libjpeg pixels as a PNG ("png"),
+    each row with that frame's annotation (the synthetic example it renders,
+    in a z-up world): `n_train` train rows and, for H36M, REAL_TEST_N test
+    rows. 3DHP's train rows carry the committed JPEG foreground mask. A
+    training shard needs a batch of train rows at least: the loader, as the
+    reference's, drops a short last batch and so loops over a shorter epoch
+    without end. -> the dataset root."""
+    from metro_pose3d_tpu_torch.data.synthetic import make_example
+
+    ex = make_example(0, seed=REAL_FRAME_SEED, imshape=SHARD_IMSHAPE)
+    r_wc, center = SHARD_R_BASE, np.array([0.0, 0.0, 1000.0])
+    world = ex.world_coords @ r_wc + center
+    frame = os.path.join(REAL_FILES, "jpeg", "frame_1000." + ("jpg" if ext == "jpg" else "rgb.png"))
+    base = os.path.join(root, layout)
+
+    def copies(rel_dir, names):
+        paths = [os.path.join(rel_dir, f"{n}.{ext}") for n in names]
+        os.makedirs(os.path.join(base, rel_dir), exist_ok=True)
+        for p in paths:
+            shutil.copyfile(frame, os.path.join(base, p))
+        return paths
+
+    def camera_rows(n):
+        return {"world_coords": np.repeat(world[None], n, 0).astype(np.float32),
+                "intrinsics": np.repeat(ex.camera.K[None], n, 0).astype(np.float32),
+                "rotations": np.repeat(r_wc[None], n, 0).astype(np.float32),
+                "positions": np.repeat(center[None], n, 0).astype(np.float32)}
+
+    half = REAL_TEST_N // 2
+    if layout == "h36m":
+        paths = copies(os.path.join("images", "S1", "Walking 1.54138969"),
+                       [f"frame_{5 * k:06d}" for k in range(n_train)])
+        for subj, seq in ((9, "Walking 1.58860488"), (11, "Greeting.60457274")):
+            paths += copies(os.path.join("images", f"S{subj}", seq),
+                            [f"frame_{64 * k:06d}" for k in range(half)])
+        n = len(paths)
+        np.savez_compressed(
+            os.path.join(base, "annotations.npz"), image_paths=np.array(paths),
+            subjects=np.array([1] * n_train + [9] * half + [11] * half, np.int32),
+            frame_indices=np.array([5 * k for k in range(n_train)]
+                                   + [64 * k for k in range(half)] * 2, np.int32),
+            distortions=np.zeros((n, 5), np.float32), **camera_rows(n))
+        return root
+    mask = os.path.join("masks", "mask_1000.jpg")
+    os.makedirs(os.path.join(base, "masks"), exist_ok=True)
+    shutil.copyfile(os.path.join(REAL_FILES, "jpeg", "mask_1000.jpg"), os.path.join(base, mask))
+    for split, rel_dir, n in (("train", os.path.join("frames", "S1", "Seq1", "cam0"), n_train),
+                              ("test", os.path.join("mpi_inf_3dhp_test_set", "TS1",
+                                                    "imageSequence"), 8)):
+        paths = copies(rel_dir, [f"frame_{5 * k:06d}" for k in range(n)])
+        extra = ({"mask_paths": np.array([mask] * n)} if split == "train" else
+                 {"mask_paths": np.array([""] * n), "univ_scale": np.ones(n, np.float32),
+                  "activities": np.ones(n, np.int32)})
+        np.savez_compressed(os.path.join(base, f"annotations_{split}.npz"),
+                            image_paths=np.array(paths), valid=np.ones(n, bool),
+                            **camera_rows(n), **extra)
+    return root
+
+
+def bank_digest(bank: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(bank).tobytes()).hexdigest()[:16]
+
+
+def phase_real_files(dev, card) -> dict:
+    """22: real files on the card's machine, which has no libjpeg and no cv2:
+    the JPEG backend (nvJPEG), its decode held to the fixtures' libjpeg
+    pixels, its ms a frame and a decoding process's device memory; the VOC
+    occluder and background banks from the fixture trees, each against the
+    bank built from the stored libjpeg pixels; the --test path on a JPEG-framed
+    H36M-layout shard against the same shard framed as PNGs of the libjpeg
+    pixels; train() at Config() on a 3DHP-layout shard of JPEG frames and
+    JPEG masks with `data.occluder_root` and `data.background_root` set to
+    the fixture trees. -> the K1, K2, K3 and K3-bwd launches of its runs."""
+    import ctypes
+
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+    from metro_pose3d_tpu_torch.data.datasets import get_dataset
+    from metro_pose3d_tpu_torch.evaluation.predict import compute_mean_bones, predict_dataset
+    from metro_pose3d_tpu_torch.init import init_metro_model
+    from metro_pose3d_tpu_torch.native import build as native
+    from metro_pose3d_tpu_torch.ops import occlusion, pool, warp
+    from metro_pose3d_tpu_torch.pipeline import backgrounds, occluders
+    from metro_pose3d_tpu_torch.pipeline import device as pdevice
+    from metro_pose3d_tpu_torch.train import trainer
+    from metro_pose3d_tpu_torch.utils import improc
+
+    t_phase = time.perf_counter()
+    backend = improc.jpeg_backend()
+    if backend != "nvjpeg":
+        fail(f"the JPEG backend on the card's machine is {backend!r}, want 'nvjpeg'")
+    lib = native.nvjpeg_library()
+    version = [ctypes.c_int() for _ in range(3)]
+    if lib.metro_nvjpeg_version(*map(ctypes.byref, version)):
+        fail("nvjpegGetProperty failed")
+    with open("/proc/self/maps") as f:
+        loaded = sorted({line.split()[-1] for line in f if "libnvjpeg" in line})
+    build_s = native.build_seconds.get("nvjpegdec", 0.0)  # before build() reads it again
+    nvcc, include, libdir = native.nvjpeg_paths()
+    print(f"[22 real] improc.jpeg_backend() = {backend}: {native.build('nvjpegdec')} (nvcc build "
+          f"{build_s:.1f} s, {nvcc}, nvjpeg.h in {include}) on nvJPEG "
+          f"{'.'.join(str(v.value) for v in version)}, loaded from {loaded}")
+
+    # decode parity: every fixture, colour and gray, against libjpeg's pixels
+    worst = []
+    for name in REAL_JPEGS:
+        path = os.path.join(REAL_FILES, "jpeg", f"{name}.jpg")
+        for gray in (False, True):
+            got = improc.imread_gray(path) if gray else improc.imread(path)
+            want = improc.imread(path[:-4] + (".gray.png" if gray else ".rgb.png"))
+            want = want[..., 0] if gray else want
+            if got.shape != want.shape:
+                fail(f"nvJPEG {name} gray={gray}: shape {got.shape}, libjpeg's {want.shape}")
+            d = np.abs(got.astype(np.int16) - want)
+            st = (int(d.max()), float(d.mean()), float((d > 1).mean()))
+            print(f"[22 real] nvJPEG vs libjpeg {name} {'gray' if gray else 'RGB'} "
+                  f"{'x'.join(map(str, got.shape))}: max {st[0]}, mean {st[1]:.4f}, share > 1 "
+                  f"level {st[2]:.5f}")
+            if st[0] > NVJPEG_CEILINGS[0] or st[1] > NVJPEG_CEILINGS[1]:
+                worst.append((name, gray, st))
+    if worst:
+        fail(f"nvJPEG above the ceilings {NVJPEG_CEILINGS} (max, mean levels): {worst}")
+    with must_refuse(improc):
+        improc.decode_jpeg_bytes(b"definitely not a jpeg")
+
+    # the decode's time a frame (host clock: the host Huffman pass, the card's
+    # IDCT and colour conversion, the copy back and the wait)
+    with open(os.path.join(REAL_FILES, "jpeg", "frame_1000.jpg"), "rb") as f:
+        data = f.read()
+    for _ in range(3):
+        improc.decode_jpeg_bytes(data)
+    n = 40
+    t0 = time.perf_counter()
+    for _ in range(n):
+        improc.decode_jpeg_bytes(data)
+    single_ms = (time.perf_counter() - t0) / n * 1e3
+    improc.decode_jpeg_batch([data] * 8, threads=4)
+    t0 = time.perf_counter()
+    improc.decode_jpeg_batch([data] * 64, threads=4)
+    batch_ms = (time.perf_counter() - t0) / 64 * 1e3
+    # a fresh process that decodes one frame: the device memory it holds
+    # (its CUDA context and nvJPEG's buffers), as a loader worker process would
+    torch.cuda.synchronize()
+    smi = ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits", "-i", "0"]
+    used0 = int(subprocess.run(smi, capture_output=True, text=True, check=True).stdout.split()[0])
+    code = ("import subprocess; from metro_pose3d_tpu_torch.utils import improc; "
+            f"improc.imread({os.path.join(REAL_FILES, 'jpeg', 'frame_1000.jpg')!r}); "
+            f"print(improc.jpeg_backend(), subprocess.run({smi!r}, capture_output=True, "
+            "text=True, check=True).stdout.split()[0])")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode or out.stdout.split()[:1] != ["nvjpeg"]:
+        fail(f"a process decoding with nvJPEG: {out.returncode} {out.stdout} {out.stderr[-2000:]}")
+    worker_mib = int(out.stdout.split()[1]) - used0
+    print(f"[22 real] nvJPEG decode of the 1000x1000 4:2:0 frame to host RGB: {single_ms:.3f} ms "
+          f"a frame one at a time, {batch_ms:.3f} ms a frame through decode_jpeg_batch on 4 "
+          f"threads (64 frames); a process that has decoded one frame holds {worker_mib} MiB of "
+          f"device memory (nvidia-smi memory.used)  [{card}]")
+
+    # the banks: through nvJPEG, and from the stored libjpeg pixels
+    voc_dir, bg_dir = REAL_FILES, os.path.join(REAL_FILES, "backgrounds")
+    t0 = time.perf_counter()
+    banks = {"voc": occluders.load_voc_occluders(voc_dir),
+             "backgrounds": backgrounds.load_backgrounds_from_dir(bg_dir)}
+    banks_s = time.perf_counter() - t0
+    with libjpeg_pixels(improc):
+        refs = {"voc": occluders.load_voc_occluders(voc_dir),
+                "backgrounds": backgrounds.load_backgrounds_from_dir(bg_dir)}
+    for what, (count, digest) in REAL_BANKS.items():
+        got, ref = banks[what], refs[what]
+        if len(got) != count or len(ref) != count or bank_digest(ref) != digest:
+            fail(f"{what} bank: {len(got)} tiles through nvJPEG, {len(ref)} from libjpeg's pixels "
+                 f"(digest {bank_digest(ref)}), want {count} and {digest}")
+        scale = 255.0 if got.dtype == np.float32 else 1.0
+        d = np.abs(got.astype(np.float64) - ref) * scale
+        print(f"[22 real] {what} bank {got.shape} {got.dtype}: through nvJPEG against the bank "
+              f"from libjpeg's pixels (equal to the CPU's, sha256 {digest}): max "
+              f"{d.max():.4f}, mean {d.mean():.5f} levels of 255")
+    print(f"[22 real] both banks through nvJPEG in {banks_s:.2f} s")
+
+    launches = {"pool": 0, "pool_bwd": 0, "warp": 0, "occluder": 0}
+    forms = {}
+
+    def add_launches():
+        for k, v in (("pool", pool.MODE_LAUNCHES["same"]),
+                     ("pool_bwd", pool.MODE_BWD_LAUNCHES["same"]), ("warp", warp.LAUNCHES),
+                     ("occluder", occlusion.LAUNCHES)):
+            launches[k] += v
+        for k, v in warp.KERNEL_LAUNCHES.items():
+            forms[k] = forms.get(k, 0) + v
+
+    def reset():
+        pool.reset_launches()
+        warp.reset_launches()
+        occlusion.LAUNCHES = 0
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    try:
+        # the --test path on JPEG frames, and on PNGs of their libjpeg pixels
+        cfg = apply_overrides(Config(), DATASET_OVERRIDES)
+        model = init_metro_model(cfg.model, SEED + 22, dev)
+        preds, rates, shards = {}, {}, {}
+        for ext in ("jpg", "png"):
+            shards[ext] = get_dataset("h36m", write_real_shard(os.path.join(tmp, ext), "h36m",
+                                                               ext, REAL_TRAIN_N))
+        # the model's first batch (cuDNN's choices) outside the timed passes
+        predict_dataset(cfg, model, shards["png"], n_examples=8)
+        for ext, ds in shards.items():
+            if (ds.n_train, ds.n_test) != (REAL_TRAIN_N, REAL_TEST_N):
+                fail(f"h36m reader on the {ext} shard: {ds.n_train} train, {ds.n_test} test")
+            mean_bones = compute_mean_bones(ds)
+            improc.FRAME_CACHE.clear()
+            reset()
+            first, warm = {}, {}
+            preds[ext] = predict_dataset(cfg, model, ds, mean_bones=mean_bones, stats=first)
+            predict_dataset(cfg, model, ds, mean_bones=mean_bones, stats=warm)
+            torch.cuda.synchronize()
+            if (warp.KERNEL_LAUNCHES.get(("normalize", torch.bfloat16), 0), warp.LAUNCHES,
+                    pool.MODE_LAUNCHES["same"]) != (2, 2, 2):
+                fail(f"predict_dataset on the {ext} shard, 2 passes of 1 batch: launches K1 "
+                     f"{dict(warp.KERNEL_LAUNCHES)}, K3 {pool.MODE_LAUNCHES['same']}")
+            add_launches()
+            for key in ("pose3d_rootrel", "pose3d_abs", "pose2d_px"):
+                if not np.isfinite(preds[ext][key]).all():
+                    fail(f"predict_dataset on the {ext} shard: {key} is not finite")
+            rates[ext] = tuple(REAL_TEST_N / st["wall_s"] for st in (first, warm))
+        delta = {k: float(np.abs(preds["jpg"][k] - preds["png"][k]).max())
+                 for k in ("pose3d_rootrel", "pose3d_abs", "pose2d_px")}
+        print(f"[22 real] predict_dataset(Config(), R50@256 bf16, TTA) on an H36M-layout shard of "
+              f"{REAL_TEST_N} test frames, copies of frame_1000.jpg: {rates['jpg'][0]:.1f} "
+              f"examples/s first pass (every frame decoded by nvJPEG), {rates['jpg'][1]:.1f} "
+              f"cached; the same shard framed as PNGs of libjpeg's pixels {rates['png'][0]:.1f} "
+              f"and {rates['png'][1]:.1f}; JPEG (nvJPEG) against PNG (libjpeg's pixels), max abs "
+              f"diff: root-relative {delta['pose3d_rootrel']:.4f} mm, absolute "
+              f"{delta['pose3d_abs']:.4f} mm, 2D {delta['pose2d_px']:.4f} px  [{card}]")
+        del model
+        torch.cuda.empty_cache()
+
+        # train() on JPEG frames and masks, with the real occluder and background banks
+        tcfg = apply_overrides(Config(), {
+            "train.logdir": os.path.join(tmp, "train"), "data.occluder_root": voc_dir,
+            "data.background_root": bg_dir, "train.checkpoint_every": "1000",
+            "train.log_every": "1", "train.validate_every": "0"})
+        ds = get_dataset("mpi_inf_3dhp", write_real_shard(os.path.join(tmp, "hp"), "3dhp", "jpg",
+                                                          tcfg.train.batch_size))
+        built, composites = {}, []
+        real_occ, real_bg = trainer.get_occluder_bank, trainer.get_background_bank
+        composite = pdevice.composite_background
+
+        def occ_bank(*a, **k):
+            built["occluders"] = real_occ(*a, **k)
+            return built["occluders"]
+
+        def bg_bank(*a, **k):
+            built["backgrounds"] = real_bg(*a, **k)
+            return built["backgrounds"]
+
+        def counted_composite(src, mask, bank, params):
+            composites.append(tuple(bank.shape))
+            return composite(src, mask, bank, params)
+
+        trainer.get_occluder_bank, trainer.get_background_bank = occ_bank, bg_bank
+        pdevice.composite_background = counted_composite
+        reset()
+        try:
+            t0 = time.perf_counter()
+            state = trainer.train(tcfg, ds, max_steps=REAL_TRAIN_STEPS, device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        finally:
+            trainer.get_occluder_bank, trainer.get_background_bank = real_occ, real_bg
+            pdevice.composite_background = composite
+        step_launches = {"pool": pool.MODE_LAUNCHES["same"],
+                         "pool_bwd": pool.MODE_BWD_LAUNCHES["same"],
+                         "warp_unit": warp.KERNEL_LAUNCHES.get(("unit", torch.float32), 0),
+                         "occluder": occlusion.LAUNCHES}
+        add_launches()
+        with open(os.path.join(tcfg.train.logdir, "history.json")) as f:
+            hist = json.load(f)
+        occ_shape = tuple(built["occluders"].shape)
+        bg_shape = tuple(built["backgrounds"].shape)
+        if (state.step != REAL_TRAIN_STEPS or occ_shape[0] != REAL_BANKS["voc"][0]
+                or bg_shape != (REAL_BANKS["backgrounds"][0], tcfg.data.source_side,
+                                tcfg.data.source_side, 3)
+                or composites != [bg_shape] * REAL_TRAIN_STEPS
+                or any(v != REAL_TRAIN_STEPS for v in step_launches.values())
+                or [r["step"] for r in hist] != list(range(1, REAL_TRAIN_STEPS + 1))
+                or not all(np.isfinite([r["loss"], r["loss3d"], r["grad_norm"]]).all()
+                           for r in hist)):
+            fail(f"train() on real assets: {state.step} steps, occluder bank {occ_shape}, "
+                 f"background bank {bg_shape}, composites {composites}, launches "
+                 f"{step_launches}, history {hist}")
+        check_pool_variants("train() on real assets", ("fwd", "bwd"))
+        print(f"[22 real] train(Config(), R50@256 bf16, B={tcfg.train.batch_size}) on a "
+              f"3DHP-layout shard of {ds.n_train} JPEG frames with a JPEG mask, data."
+              f"occluder_root the VOC fixture (bank {occ_shape}) and data.background_root the "
+              f"background fixture (bank {bg_shape}): {REAL_TRAIN_STEPS} steps in {train_s:.1f} s "
+              f"(the banks' builds included), loss {hist[0]['loss']:.4f} -> "
+              f"{hist[-1]['loss']:.4f}, finite; a composite at every step; launches "
+              f"{step_launches}  [{card}]")
+        del state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[22 real] phase time {time.perf_counter() - t_phase:.1f} s")
+    return {**launches, "warp_forms": forms}
+
+
+@contextlib.contextmanager
+def must_refuse(improc):
+    """The block must raise improc.CorruptImage (the smoke has no pytest)."""
+    try:
+        yield
+    except improc.CorruptImage:
+        return
+    fail("nvJPEG took bytes that are not a JPEG")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
@@ -3562,6 +3927,7 @@ def main() -> int:
     dataset = phase_dataset(dev, card)  # 19
     mp = phase_multiperson(rng, dev, card)  # 20
     dp = phase_dp(dev, card, resident_ms["no background bank"])  # 21
+    real = phase_real_files(dev, card)  # 22
     int8_records[0]["launches"] += dataset["qk1"] + mp["qk1"]
     int8_records[1]["launches"] += dataset["qk2"] + mp["qk2"]
 
@@ -3585,12 +3951,14 @@ def main() -> int:
     record = {"kernels": [
         kernel("maxpool3x3s2_same", "maxpool3x3s2.cu", pallas_pool,
                launches["pool"] + train_launches["pool"] + fam_launches["d_twofive"]["pool_same"]
-               + int8_path["pool"] + feed["pool"] + dataset["pool"] + mp["pool"] + dp["pool"],
+               + int8_path["pool"] + feed["pool"] + dataset["pool"] + mp["pool"] + dp["pool"]
+               + real["pool"],
                pool_err, pool_ms, pool_plain_ms, pool_bound, None,
                bound_share=pool_bound[0] / pool_ms, two_calls_ms=pool_two_calls_ms,
                ms_scalar=pool_scalar_ms),
         kernel("maxpool3x3s2_same_bwd", "maxpool3x3s2_bwd.cu", pallas_pool,
-               train_launches["pool_bwd"] + feed["pool_bwd"] + mp["pool_bwd"] + dp["pool_bwd"],
+               train_launches["pool_bwd"] + feed["pool_bwd"] + mp["pool_bwd"] + dp["pool_bwd"]
+               + real["pool_bwd"],
                bwd_err, bwd_ms,
                bwd_plain_ms, bwd_bound, None,
                bound_share=bwd_bound[0] / bwd_ms, ms_relu=bwd_relu_ms, ms_scalar=bwd_scalar_ms),
@@ -3603,7 +3971,7 @@ def main() -> int:
           for (mode, way), r in modes.items()],
         kernel("warp_crop", "warp_crop.cu", "metro_pose3d_tpu/ops/warp_pallas.py:415",
                launches["warp"] + train_launches["warp"] + int8_path["warp"] + feed["warp"]
-               + dataset["warp"] + mp["warp"] + dp["warp"],
+               + dataset["warp"] + mp["warp"] + dp["warp"] + real["warp"],
                warp_max, none["ms"],
                none["plain_ms"],
                (none["bound_ms"], none["bound_by"]), None, call_ms=none["call_ms"],
@@ -3613,10 +3981,12 @@ def main() -> int:
                                                 + feed["warp_forms"].get((e, d), 0)
                                                 + dataset["warp_forms"].get((e, d), 0)
                                                 + mp["warp_forms"][e, d]
-                                                + (dp["warp_unit"] if e == "unit" else 0)}
+                                                + (dp["warp_unit"] if e == "unit" else 0)
+                                                + real["warp_forms"].get((e, d), 0)}
                       for (e, d), r in warp_forms.items()}),
         kernel("occluder_paste", "occluder_paste.cu", "metro_pose3d_tpu/ops/warp_pallas.py:507",
-               train_launches["occluder"] + feed["occluder"] + mp["occluder"] + dp["occluder"],
+               train_launches["occluder"] + feed["occluder"] + mp["occluder"] + dp["occluder"]
+               + real["occluder"],
                occ_err, occ_ms,
                occ_plain_ms, occ_bound, None),
         *probe_records,

@@ -1,7 +1,7 @@
-"""Build the port's host runtime with the machine's C compiler and load it
-with ctypes.
+"""Build the port's host runtime with the machine's C compiler (and, for
+nvJPEG, nvcc) and load it with ctypes.
 
-Three libraries, each with a plain C interface (no Python.h):
+Five libraries, each with a plain C interface (no Python.h):
 
   croprep   `croprep.c`: the crop-parameter engine and the source-tile copy.
             Needs only libm. The loader's native engine.
@@ -9,6 +9,13 @@ Three libraries, each with a plain C interface (no Python.h):
             only when a JPEG is read, so that crop prep never needs libjpeg.
   pngdec    `pngdec.c`: PNG row unfiltering (libc only), built when a PNG
             is read; Python's zlib inflates.
+  resize    `resize.c`: cv2's INTER_AREA and INTER_LINEAR resize (libm
+            only), built when an image is resized.
+  nvjpegdec `nvjpegdec.cu`: JPEG decoding on the GPU through nvJPEG, for a
+            machine without libjpeg; built with nvcc against the CUDA
+            toolkit's `nvjpeg.h` and `libnvjpeg.so` (`nvjpeg_paths`), with
+            an rpath to the latter, only when `utils/improc.py` finds no
+            libjpeg.
 
 Each is built at first use, never at import time, into
 `build/native/<hash>/` at the root of the checkout, keyed by a hash of its
@@ -17,7 +24,8 @@ directory and renames the library into place, so concurrent builds (test
 workers, loader processes) never load a half-written file. A failed build is
 remembered for the process: `crop_library()` then returns None (the `auto`
 engine falls back to numpy) and `build_error("croprep")` says why;
-`jpeg_library()` raises, naming libjpeg.
+`jpeg_library()` raises, naming libjpeg, and `nvjpeg_library()` names what
+nvJPEG's build lacked.
 
 Flags: -O3 without -march=native, since a checkout may be copied to another
 host with the build directory, and -ffp-contract=off, so that no product and
@@ -27,6 +35,7 @@ sum fuse into an FMA the numpy code does not make (the engines then agree to
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -41,7 +50,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 CFLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-ffp-contract=off")
 # name: (source, link flags)
 LIBS = {"croprep": ("croprep.c", ("-lm",)), "jpegdec": ("jpegdec.c", ("-ljpeg",)),
-        "pngdec": ("pngdec.c", ())}
+        "pngdec": ("pngdec.c", ()), "resize": ("resize.c", ("-lm",))}
+NVJPEG_SRC = "nvjpegdec.cu"
+NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _D, _SZ = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_size_t
 SIGNATURES = {
@@ -66,7 +77,22 @@ SIGNATURES = {
         # raw, raw_len, h, w, bpp, out
         "metro_png_unfilter": [ctypes.c_char_p, _SZ, _I, _I, _I, _P],
     },
+    "resize": {
+        # src, sh, sw, cn, is_f32, dst, dh, dw, interp
+        "metro_resize": [_P, _I, _I, _I, _I, _P, _I, _I, _I],
+    },
+    "nvjpegdec": {
+        "metro_nvjpeg_init": [],
+        # &major, &minor, &patch
+        "metro_nvjpeg_version": [_P, _P, _P],
+        # data, len, &h, &w, &components
+        "metro_nvjpeg_dims": [ctypes.c_char_p, _SZ, _P, _P, _P],
+        # data, len, out, h, w, gray
+        "metro_nvjpeg_decode": [ctypes.c_char_p, _SZ, _P, _I, _I, _I],
+    },
 }
+# metro_nvjpeg_* codes other than 0 (`nvjpeg_message`)
+NVJPEG_REFUSED, NVJPEG_NO_DEVICE, NVJPEG_FAULT, NVJPEG_CUDA_FAULT = 1, 2, 100, 1000
 
 _lock = threading.Lock()
 _loaded: dict = {}  # name -> CDLL, or the build's error message
@@ -77,17 +103,53 @@ def _compiler() -> str:
     return os.environ.get("CC") or "cc"
 
 
-def _lib_path(name: str) -> Path:
+def nvjpeg_paths() -> tuple:
+    """(nvcc, the directory of `nvjpeg.h`, the directory of `libnvjpeg.so*`)
+    of the CUDA toolkit: searched under CUDA_HOME, CUDA_PATH and nvcc's
+    prefix, in `include/` and `targets/*/include`, and `lib64/`, `lib/`
+    and `targets/*/lib`. RuntimeError naming the roots searched where nvcc,
+    the header or the library is missing."""
+    from metro_pose3d_tpu_torch.kernels.build import _nvcc
+
+    nvcc = _nvcc()  # RuntimeError where there is none
+    roots = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+             os.path.dirname(os.path.dirname(os.path.realpath(nvcc)))]
+    roots = sorted({r for r in roots if r and os.path.isdir(r)})
+    headers, libs = [], []
+    for r in roots:
+        for sub in ("include", os.path.join("targets", "*", "include")):
+            headers += glob.glob(os.path.join(r, sub, "nvjpeg.h"))
+        for sub in ("lib64", "lib", os.path.join("targets", "*", "lib")):
+            libs += glob.glob(os.path.join(r, sub, "libnvjpeg.so*"))
+    if not headers or not libs:
+        raise RuntimeError(f"nvJPEG not found under {roots}: nvjpeg.h {sorted(headers) or 'none'},"
+                           f" libnvjpeg.so* {sorted(libs) or 'none'}")
+    return nvcc, os.path.dirname(sorted(headers)[0]), os.path.dirname(sorted(libs)[0])
+
+
+def _command(name: str, out: Path) -> list:
+    """The compiler command that builds library `name` into `out`."""
+    if name == "nvjpegdec":
+        nvcc, include, lib = nvjpeg_paths()
+        return [nvcc, *NVCC_FLAGS, "-I", include, str(NATIVE / NVJPEG_SRC), "-L", lib,
+                "-lnvjpeg", "-Xlinker", f"-rpath,{lib}", "-Xlinker", "--disable-new-dtags",
+                "-o", str(out)]
     src, link = LIBS[name]
-    h = hashlib.sha256(" ".join((_compiler(), *CFLAGS, *link)).encode())
+    return [_compiler(), *CFLAGS, str(NATIVE / src), *link, "-o", str(out)]
+
+
+def _lib_path(name: str) -> Path:
+    """build/native/<hash of the command and the source>/libmetro_<name>.so"""
+    src = NVJPEG_SRC if name == "nvjpegdec" else LIBS[name][0]
+    h = hashlib.sha256(" ".join(_command(name, Path(f"libmetro_{name}.so"))).encode())
     h.update((NATIVE / src).read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / f"libmetro_{name}.so"
 
 
 def build(name: str) -> Path:
     """Compile library `name` (if its hashed build is missing) -> its path.
-    Raises RuntimeError with the compiler's output when the build fails."""
-    src, link = LIBS[name]
+    Raises RuntimeError with the compiler's output when the build fails, or
+    naming what nvJPEG's build lacks."""
     lib_path = _lib_path(name)
     if lib_path.exists():
         build_seconds[name] = 0.0
@@ -97,7 +159,7 @@ def build(name: str) -> Path:
     work = Path(tempfile.mkdtemp(dir=lib_path.parent))
     try:
         tmp = work / lib_path.name
-        cmd = [_compiler(), *CFLAGS, str(NATIVE / src), *link, "-o", str(tmp)]
+        cmd = _command(name, tmp)
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         except (OSError, subprocess.TimeoutExpired) as e:
@@ -159,3 +221,38 @@ def png_library():
         raise RuntimeError("reading a PNG needs the port's PNG unfilter (native/pngdec.c), "
                            f"which did not build on this machine:\n{build_error('pngdec')}")
     return lib
+
+
+def resize_library():
+    """cv2's area and linear resize; raises RuntimeError where the C
+    compiler cannot build it."""
+    lib = load("resize")
+    if lib is None:
+        raise RuntimeError("resizing needs the port's resize (native/resize.c), which did not "
+                           f"build on this machine:\n{build_error('resize')}")
+    return lib
+
+
+def nvjpeg_library():
+    """The nvJPEG decoder, built with nvcc at first use; raises RuntimeError,
+    saying what was missing, where it cannot be built or loaded here (no
+    nvcc, no nvJPEG in the toolkit, a failed build). Whether a card is
+    present is the caller's question (`metro_nvjpeg_init`)."""
+    lib = load("nvjpegdec")
+    if lib is None:
+        raise RuntimeError(f"the nvJPEG decoder (native/{NVJPEG_SRC}) did not build or load on "
+                           f"this machine:\n{build_error('nvjpegdec')}")
+    return lib
+
+
+def nvjpeg_message(code: int) -> str:
+    """What a metro_nvjpeg_* code other than 0 means."""
+    if code == NVJPEG_REFUSED:
+        return "nvJPEG refused the data (corrupt or unsupported JPEG)"
+    if code == NVJPEG_NO_DEVICE:
+        return "nvJPEG found no CUDA device"
+    if code >= NVJPEG_CUDA_FAULT:
+        return f"nvJPEG decode: CUDA error {code - NVJPEG_CUDA_FAULT}"
+    if code >= NVJPEG_FAULT:
+        return f"nvJPEG decode: nvjpegStatus_t {code - NVJPEG_FAULT}"
+    return f"nvJPEG decode: unknown code {code}"

@@ -7,13 +7,17 @@ holds it on the device and composites it behind the subject in source-tile
 space, before the crop warp (`ops/color.py::composite_background`), for
 every batch that carries "source_mask". Where no background directory
 exists, a procedural bank of low-frequency colour fields stands in; it
-equals the JAX package's bit for bit at the same arguments.
+equals the JAX package's bit for bit at the same arguments. A directory's
+bank is read without cv2 (`utils/improc.py`) and equals the JAX package's
+on the same files where libjpeg decodes them.
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
+
+from metro_pose3d_tpu_torch.utils import improc
 
 
 def make_procedural_backgrounds(n: int = 32, side: int = 512, seed: int = 1) -> np.ndarray:
@@ -38,13 +42,11 @@ def make_procedural_backgrounds(n: int = 32, side: int = 512, seed: int = 1) -> 
 def load_backgrounds_from_dir(path: str, side: int = 512, max_count: int = 500) -> np.ndarray:
     """Centre-crop and resize every image under `path` into the bank.
 
-    Reads each file with `cv2.imread` and turns it to RGB order. The JAX
-    package decodes JPEGs with its own native decoder; the port has none
-    yet, so cv2 decodes every format here, and cv2 is imported only when
-    this is called.
+    Reads each file with `improc.imread` (RGB; JPEGs through libjpeg or
+    nvJPEG), takes its centre square and resizes it to `side` as cv2's
+    INTER_AREA does (a square under `side` grows through cv2's linear
+    branch). A missing JPEG decoder raises.
     """
-    import cv2
-
     files = sorted(
         f for f in os.listdir(path)
         if f.lower().endswith((".jpg", ".jpeg", ".png"))
@@ -53,20 +55,19 @@ def load_backgrounds_from_dir(path: str, side: int = 512, max_count: int = 500) 
         raise FileNotFoundError(f"no images under {path}")
     bank = np.zeros((len(files), side, side, 3), np.uint8)
     for i, fname in enumerate(files):
-        img = cv2.imread(os.path.join(path, fname))
-        if img is None:
-            raise FileNotFoundError(os.path.join(path, fname))
-        img = np.ascontiguousarray(img[..., ::-1])
+        img = improc.imread(os.path.join(path, fname))
         h, w = img.shape[:2]
         s = min(h, w)
         y0, x0 = (h - s) // 2, (w - s) // 2
-        bank[i] = cv2.resize(img[y0 : y0 + s, x0 : x0 + s], (side, side),
-                             interpolation=cv2.INTER_AREA)
+        bank[i] = improc.resize(img[y0 : y0 + s, x0 : x0 + s], (side, side), "area")
     return bank
 
 
 def get_background_bank(bg_dir: str | None, side: int = 512) -> np.ndarray:
-    """The bank from `bg_dir` when it holds images, else the procedural bank."""
+    """The bank from `bg_dir` when it holds images, else the procedural
+    bank. Only a missing directory or file falls back (FileNotFoundError,
+    OSError, as the reference); a missing JPEG decoder
+    (`improc.NoJpegDecoder`, a RuntimeError) or a damaged file raises."""
     if bg_dir and os.path.isdir(bg_dir):
         try:
             return load_backgrounds_from_dir(bg_dir, side)

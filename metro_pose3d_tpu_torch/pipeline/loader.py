@@ -19,7 +19,13 @@ batches stream to the device:
 The JAX package also patches the environment of spawned workers so that they
 start without its TPU runtime hook (`_patch_spawn_env`); the port has no such
 hook and leaves the environment alone. This module imports neither torch
-nor cv2, so spawned workers stay cheap and never touch CUDA.
+nor cv2, so spawned workers stay cheap. They touch CUDA only to decode
+JPEGs where libjpeg is missing (`utils/improc.py::jpeg_backend` is then
+nvJPEG): a worker process that decodes one opens its own CUDA context, and
+holds 538 MiB of device memory from then on (`chip_smoke.py` phase
+22, NVIDIA H100 80GB HBM3, 700.00 W). Spawn, the start method here, keeps
+that safe; threads share the process's context, each decode with its own
+nvJPEG state and stream.
 """
 from __future__ import annotations
 

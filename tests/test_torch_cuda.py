@@ -1,9 +1,13 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and the
+nvJPEG decode of a machine without libjpeg against the fixtures' libjpeg
+pixels.
 
 Marked `cuda`: these skip where CUDA is absent. They import no jax (the
 card's machine has none); run them there with the conftest left out:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -765,3 +769,44 @@ def test_tiny_int8_serving_on_card_matches_cpu(cuda, over):
     for key in want:
         assert float((got[key].cpu() - want[key]).abs().max()) < {"pose3d_rootrel": 5.0,
                                                                   "pose2d_px": 0.5}[key], key
+
+
+# --- nvJPEG: the JPEG decode of a machine without libjpeg ---------------------------
+
+REAL_JPEG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "real_files",
+                         "jpeg")
+# levels of [0, 255] against libjpeg's pixels (chip_smoke.NVJPEG_CEILINGS): they
+# catch swapped channels, a wrong chroma siting or a missed colour conversion,
+# not the IDCT's and the upsampling's rounding
+NVJPEG_MAX, NVJPEG_MEAN = 16, 1.0
+
+
+@pytest.fixture
+def nvjpeg(cuda):
+    from metro_pose3d_tpu_torch.utils import improc
+
+    if improc.jpeg_backend() != "nvjpeg":
+        pytest.skip("libjpeg is present: this process decodes JPEGs with it")
+    return improc
+
+
+@pytest.mark.parametrize("gray", [False, True])
+@pytest.mark.parametrize("name", ["s444", "s422", "s420", "gray", "progressive", "restart",
+                                  "odd_37x53", "frame_1000", "mask_1000"])
+def test_nvjpeg_decode_is_near_libjpeg(nvjpeg, name, gray):
+    path = os.path.join(REAL_JPEG, f"{name}.jpg")
+    got = nvjpeg.imread_gray(path) if gray else nvjpeg.imread(path)
+    want = nvjpeg.imread(os.path.join(REAL_JPEG, f"{name}.{'gray' if gray else 'rgb'}.png"))
+    want = want[..., 0] if gray else want
+    assert got.shape == want.shape and got.dtype == np.uint8
+    diff = np.abs(got.astype(np.int16) - want)
+    assert diff.max() <= NVJPEG_MAX and diff.mean() <= NVJPEG_MEAN, (diff.max(), diff.mean())
+
+
+def test_nvjpeg_refuses_what_is_not_a_jpeg(nvjpeg):
+    with pytest.raises(nvjpeg.CorruptImage):
+        nvjpeg.decode_jpeg_bytes(b"definitely not a jpeg")
+    with open(os.path.join(REAL_JPEG, "s420.jpg"), "rb") as f:
+        data = f.read()
+    with pytest.raises(ValueError, match="item 1"):
+        nvjpeg.decode_jpeg_batch([data, b"not a jpeg"], threads=2)

@@ -115,10 +115,13 @@ class TestDecode:
     def test_without_libjpeg_a_jpeg_read_raises_and_names_it(self, monkeypatch, jpeg_bytes,
                                                              tmp_path):
         """A failed build of the decoder (no jpeglib.h or -ljpeg) is
-        remembered; reading a JPEG then raises and names libjpeg, while the
-        crop engine, which needs no libjpeg, keeps working."""
+        remembered; where nvJPEG cannot stand in either (here: no nvcc, no
+        card), reading a JPEG then raises and names libjpeg and nvJPEG,
+        while the crop engine, which needs no libjpeg, keeps working."""
+        monkeypatch.setattr(improc, "_backend", None)  # choose the backend again
         monkeypatch.setitem(native._loaded, "jpegdec", "fatal error: jpeglib.h: no such file")
-        with pytest.raises(RuntimeError, match="libjpeg"):
+        monkeypatch.setitem(native._loaded, "nvjpegdec", "nvcc not found")
+        with pytest.raises(RuntimeError, match="(?s)libjpeg.*nvJPEG"):
             improc.decode_jpeg_bytes(jpeg_bytes)
         p = tmp_path / "x.jpg"
         p.write_bytes(jpeg_bytes)
@@ -209,7 +212,12 @@ def test_png_every_row_filter(tmp_path, filters, channels):
 def test_png_it_does_not_read_raises_naming_the_file(tmp_path):
     img = np.zeros((4, 5, 3), np.uint8)
     assert cv2.imwrite(str(tmp_path / "deep.png"), np.full((4, 5, 3), 4000, np.uint16))
-    files = {"palette.png": encode_png(img[..., 0], [0], color_type=3, palette=range(48)),
+    # a 4-bit palette PNG: 5 pixels a row in 3 bytes
+    palette4 = (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", 5, 4, 4, 3, 0, 0, 0))
+                + _png_chunk(b"PLTE", bytes(range(48)))
+                + _png_chunk(b"IDAT", zlib.compress((b"\x00" + bytes(3)) * 4))
+                + _png_chunk(b"IEND", b""))
+    files = {"palette4.png": palette4,
              "adam7.png": encode_png(img, [0], interlace=1),
              "grayalpha.png": encode_png(img[..., :2], [0]),
              "notpng.png": b"GIF89a"}
@@ -225,7 +233,7 @@ def test_png_it_does_not_read_raises_naming_the_file(tmp_path):
     files["crc.png"] = bytes(crc)
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
-    expect = {"deep.png": "bit depth of 16", "palette.png": "a palette",
+    expect = {"deep.png": "bit depth of 16", "palette4.png": "bit depth of 4",
               "adam7.png": "interlacing", "grayalpha.png": "colour type 4",
               "notpng.png": "not a PNG",
               "filter5.png": "row filter above 4", "crc.png": "bad CRC",
@@ -237,6 +245,14 @@ def test_png_it_does_not_read_raises_naming_the_file(tmp_path):
         assert name in str(err.value)
         # cv2.imread gives None for the damaged files and reads none of the others
         assert isinstance(err.value, improc.CorruptImage) == (name in damaged), name
+    # an 8-bit palette PNG reads, as cv2 reads it
+    (tmp_path / "palette.png").write_bytes(
+        encode_png(np.arange(20, dtype=np.uint8).reshape(4, 5), [0], color_type=3,
+                   palette=range(48)))
+    np.testing.assert_array_equal(improc.imread(str(tmp_path / "palette.png")),
+                                  cv2.imread(str(tmp_path / "palette.png"))[..., ::-1])
+    np.testing.assert_array_equal(improc.imread_gray(str(tmp_path / "palette.png")),
+                                  cv2.imread(str(tmp_path / "palette.png"), cv2.IMREAD_GRAYSCALE))
     # a colour PNG under a gamma chunk: libpng's gray goes through gamma tables
     for kind, body in ((b"sRGB", b"\x00"), (b"gAMA", struct.pack(">I", 45455))):
         png = encode_png(img, [0])
