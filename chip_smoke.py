@@ -180,7 +180,11 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              collectives (informative); one float32 step (TF32 off, R50@128,
              global 6 + 2 rows) of the 2 ranks against one process on the
              same global batch within TRAIN_PARITY_RTOL, and its BN statistics
-             and parameters as phase 11 holds them; then NCCL as a group of
+             and parameters as phase 11 holds them, and the same step with
+             ghost BN in one group of the 8 global rows (4 on each rank: the
+             group spans both) against one process; each rank's bf16 step
+             with ghost BN in groups of 32 global rows (rows 32-63 straddle
+             the ranks; informative); then NCCL as a group of
              one in this process: the float32 step within TRAIN_PARITY_RTOL of
              the step without a group, and the bf16 step's times; NCCL with 2
              ranks where the machine has two cards. A rank that fails, or a
@@ -210,6 +214,25 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              trees: the VOC bank of 6 tiles and the background bank of 4, a
              composite at every step, finite losses, K1 unit, K2, K3 and K3's
              backward launched once a step
+ 23 finish   `export.aot_compile` (Config(): R50@256, crop-in with flip TTA,
+             B=64) from `load_exported` bundles of seeded weights, bf16 and
+             int8 (calibrated as in phase 17): each captured as a CUDA graph;
+             load to first answer, eager and compiled, and steady ms a batch,
+             eager and replayed (informative); the replay against the eager
+             call on the same inputs and on fresh ones (equal bits expected;
+             otherwise within PARITY_TOL / INT8_PARITY_TOL), an earlier
+             answer unchanged by a later replay, a batch of 32 refused, and
+             the wrappers' counts ticking once a replay by one replay's
+             launches (K3 1; int8 also QK1 52 and QK2 20); a capture of a
+             function that reads the card on the host raises. Then
+             `demo.main` on the card writes a PNG that the port reads back
+             and, with `--video 8`, an npz of 8 overlay frames, one K1
+             normalize_div bf16 and one K3 launch a frame, without cv2 or
+             matplotlib; then `utils/profiling.py`: `StepTimer` and `sync`
+             around 20 eager predicts, `device_memory_stats()` (a peak above
+             0, the card's total memory as the limit) and a `trace()` of 3
+             predicts whose file names the stem pool's kernel (a trace that
+             misses it is taken again, eight at most)
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -229,7 +252,9 @@ QK1's record sums the 52 convs of one backbone forward (`per_shape`
 lists each, with its count; `parts` sums the 3x3 and the 1x1 ones apart),
 its `library_ms` is `torch._int_mm` on the same integer sums (the unfolded
 input of a 3x3); QK2's sums one launch of each form at stage 1
-(`per_form`); both are marked as not TPU kernels in `replaces`.
+(`per_form`); both are marked as not TPU kernels in `replaces`. K3's,
+QK1's and QK2's records add `graph_replay_launches`: their launches in one
+replay of phase 23's CUDA graph of each bundle, bf16 and int8.
 The gathers' and the row slice's records add `floor_ms`, the device time
 of an empty kernel on their grid, block and shared memory; the gathers'
 `library_ms` is `take_along_dim` on int64 indices cast beforehand (ATen's
@@ -2781,6 +2806,8 @@ DP_STEPS, DP_CUT = 5, 3  # the run's steps; its checkpoint and resume point
 DP_TIMEOUT = 300  # seconds: a rank spawn, and the process group's collectives
 DP_TIMED_STEPS = 3
 DP_PARITY_ROWS = (6, 2)  # the float32 step's global 3D and 2D rows
+DP_GHOST_PARITY = 8  # the float32 ghost step's group: all 8 global rows, 4 on each rank
+DP_GHOST_GROUP = 32  # the timed ghost step's group: rows 32-63 of 96 straddle the 2 ranks
 _LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
@@ -2864,10 +2891,12 @@ def state_digest(state) -> str:
     return h.hexdigest()
 
 
-def dp_parity_step(dev, rank=0, world=1) -> tuple:
+def dp_parity_step(dev, rank=0, world=1, group_size=0) -> tuple:
     """One float32 step (TF32 off) of R50@128 from seed SEED + 3 on this
     rank's rows of the global parity batch -> (metrics, state on the CPU).
-    With world 1, on the whole global batch in the ranks' order."""
+    With world 1, on the whole global batch in the ranks' order. A
+    `group_size` makes batch norm ghost BN over groups of that many global
+    rows."""
     from metro_pose3d_tpu_torch.config import Config, apply_overrides
     from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
     from metro_pose3d_tpu_torch.pipeline.occluders import make_procedural_occluders
@@ -2876,7 +2905,8 @@ def dp_parity_step(dev, rank=0, world=1) -> tuple:
 
     n3, n2 = DP_PARITY_ROWS
     pcfg = apply_overrides(Config(), {"model.compute_dtype": "float32", "model.proc_side": "128",
-                                      "train.warmup_steps": "0"})
+                                      "train.warmup_steps": "0",
+                                      "model.bn_group_size": str(group_size)})
     gb = train_batch(np.random.RandomState(SEED + 22), n3, n2, TILE, 128, 64)
     rows = (merged_rows(gb, n3, n2, DP_WORLD) if world == 1
             else rank_rows(gb, n3, n2, rank, world))
@@ -2911,6 +2941,7 @@ def dp_rank(backend: str, rank: int, world: int, tmp: str) -> int:
     from metro_pose3d_tpu_torch.pipeline.device import batch_to_device, pack_occluder_bank_for
     from metro_pose3d_tpu_torch.pipeline.occluders import make_procedural_occluders
     from metro_pose3d_tpu_torch.train.loop import make_train_step
+    from metro_pose3d_tpu_torch.train.state import create_train_state
     from metro_pose3d_tpu_torch.train.trainer import _train_on_batches
 
     # two Gloo ranks share the one card; NCCL takes a card a rank
@@ -2945,13 +2976,21 @@ def dp_rank(backend: str, rank: int, world: int, tmp: str) -> int:
         check_warp_forms_launched(f"[21 dp] rank {rank}", ("unit", torch.float32))
         step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(bank_np, dev))
         out["times"] = dp_step_times(step, state, batch_to_device(host[0], dev))
+        if backend == "gloo":
+            # ghost BN whose group 1 (global rows 32-63) straddles the ranks
+            gcfg = apply_overrides(cfg, {"model.bn_group_size": str(DP_GHOST_GROUP)})
+            gstep = make_train_step(gcfg, 0, occluder_bank=pack_occluder_bank_for(bank_np, dev))
+            gstate = create_train_state(gcfg, dev, seed=SEED)
+            out["ghost_times"] = dp_step_times(gstep, gstate, batch_to_device(host[0], dev))
+            del gstate, gstep
         del state, step
         torch.cuda.empty_cache()
         if backend == "gloo":
-            metrics, sd = dp_parity_step(dev, rank, world)
-            out["parity_metrics"] = metrics
-            if rank == 0:
-                torch.save(sd, os.path.join(tmp, "parity_rank0.pt"))
+            for name, gs in (("parity", 0), ("ghost_parity", DP_GHOST_PARITY)):
+                metrics, sd = dp_parity_step(dev, rank, world, gs)
+                out[f"{name}_metrics"] = metrics
+                if rank == 0:
+                    torch.save(sd, os.path.join(tmp, f"{name}_rank0.pt"))
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -3050,34 +3089,44 @@ def phase_dp(dev, card, resident_step_ms) -> dict:
                   f"{fmt_times(out['times'])}; one process's step (phase 12) "
                   f"{resident_step_ms:.1f} ms  [{card}]")
 
-        # the float32 step of the 2 ranks against one process, same global batch
-        want, want_sd = dp_parity_step(dev)
-        got = outs[0]["parity_metrics"]
-        for r, out in enumerate(outs[1:], 1):
-            if out["parity_metrics"] != got:
-                fail(f"[21 dp] rank {r}'s parity metrics differ from rank 0's")
-        for k, tol in TRAIN_PARITY_RTOL.items():
-            if not abs(got[k] - want[k]) <= tol * abs(want[k]):
-                fail(f"[21 dp] float32 step, 2 ranks vs one process, {k}: {got[k]} vs {want[k]} "
-                     f"(rtol {tol})")
-        got_sd = torch.load(os.path.join(tmp, "gloo", "parity_rank0.pt"), weights_only=True)
-        stats = [k for k in want_sd if k.endswith((".mean", ".var"))]
-        stat_err = max(float((got_sd[k] - want_sd[k]).abs().max()) for k in stats)
-        diff = torch.cat([(got_sd[k] - want_sd[k]).abs().flatten() for k in want_sd
-                          if k not in stats])
-        lr = Config().train.base_lr
-        near = float((diff <= 0.1 * lr).float().mean())
-        if not (stat_err <= STATS_ATOL and float(diff.max()) <= 2 * lr + 1e-6 and near > 0.99):
-            fail(f"[21 dp] float32 step, 2 ranks vs one process: BN stats {stat_err:.2e} (tol "
-                 f"{STATS_ATOL}), params max {float(diff.max()):.2e} (tol 2 lr), share within "
-                 f"lr/10 {near:.4f} (want > 0.99)")
+        for r, out in enumerate(outs):
+            print(f"[21 dp] rank {r}, ghost BN in groups of {DP_GHOST_GROUP} global rows (rows "
+                  f"32-63 on both ranks), informative: {fmt_times(out['ghost_times'])}  [{card}]")
+
+        # the float32 step of the 2 ranks against one process, same global
+        # batch: plain batch norm, then ghost BN in one group of both ranks' rows
         n3, n2 = DP_PARITY_ROWS
-        print(f"[21 dp] one float32 step (TF32 off) R50@128, global {n3} + {n2} rows, 2 Gloo ranks "
-              f"vs one process on the card: rel diff "
-              + ", ".join(f"{k} {abs(got[k] - want[k]) / abs(want[k]):.1e}"
-                          for k in TRAIN_PARITY_RTOL)
-              + f" (rtol {TRAIN_PARITY_RTOL}); BN stats {stat_err:.1e} (atol {STATS_ATOL}); "
-              f"params max {float(diff.max()):.1e} (<= 2 lr), share within lr/10 {near:.5f}")
+        lr = Config().train.base_lr
+        for name, gs in (("parity", 0), ("ghost_parity", DP_GHOST_PARITY)):
+            what = "" if not gs else f", ghost BN in groups of {gs} rows spanning both ranks"
+            one_want, one_sd = dp_parity_step(dev, group_size=gs)
+            if not gs:
+                want = one_want
+            got = outs[0][f"{name}_metrics"]
+            for r, out in enumerate(outs[1:], 1):
+                if out[f"{name}_metrics"] != got:
+                    fail(f"[21 dp] rank {r}'s {name} metrics differ from rank 0's")
+            for k, tol in TRAIN_PARITY_RTOL.items():
+                if not abs(got[k] - one_want[k]) <= tol * abs(one_want[k]):
+                    fail(f"[21 dp] float32 step{what}, 2 ranks vs one process, {k}: {got[k]} vs "
+                         f"{one_want[k]} (rtol {tol})")
+            got_sd = torch.load(os.path.join(tmp, "gloo", f"{name}_rank0.pt"), weights_only=True)
+            stats = [k for k in one_sd if k.endswith((".mean", ".var"))]
+            stat_err = max(float((got_sd[k] - one_sd[k]).abs().max()) for k in stats)
+            diff = torch.cat([(got_sd[k] - one_sd[k]).abs().flatten() for k in one_sd
+                              if k not in stats])
+            near = float((diff <= 0.1 * lr).float().mean())
+            if not (stat_err <= STATS_ATOL and float(diff.max()) <= 2 * lr + 1e-6
+                    and near > 0.99):
+                fail(f"[21 dp] float32 step{what}, 2 ranks vs one process: BN stats "
+                     f"{stat_err:.2e} (tol {STATS_ATOL}), params max {float(diff.max()):.2e} "
+                     f"(tol 2 lr), share within lr/10 {near:.4f} (want > 0.99)")
+            print(f"[21 dp] one float32 step (TF32 off) R50@128, global {n3} + {n2} rows{what}, "
+                  f"2 Gloo ranks vs one process on the card: rel diff "
+                  + ", ".join(f"{k} {abs(got[k] - one_want[k]) / abs(one_want[k]):.1e}"
+                              for k in TRAIN_PARITY_RTOL)
+                  + f" (rtol {TRAIN_PARITY_RTOL}); BN stats {stat_err:.1e} (atol {STATS_ATOL}); "
+                  f"params max {float(diff.max()):.1e} (<= 2 lr), share within lr/10 {near:.5f}")
 
         # NCCL as a group of one, in this process
         initialize_distributed(0, 1, init_method=f"file://{os.path.join(tmp, 'nccl_rdv')}",
@@ -3481,6 +3530,281 @@ def phase_real_files(dev, card) -> dict:
     torch.cuda.empty_cache()
     print(f"[22 real] phase time {time.perf_counter() - t_phase:.1f} s")
     return {**launches, "warp_forms": forms}
+
+
+# --- phase 23: aot_compile as a CUDA graph, the demo, profiling --------------------
+AOT_BATCH = 64  # crop-in with flip TTA: the backbone sees 128 rows
+AOT_SIDE = 256
+AOT_TIMED = 20  # calls timed, eager and replayed
+AOT_COUNTED = 3  # replays whose launches are counted
+# kernel launches of one replay of the crop-in TTA predict (one forward)
+AOT_PER_REPLAY = {"bf16": {"pool": 1, "qk1": 0, "qk2": 0},
+                  "int8": {"pool": 1, "qk1": 52, "qk2": 20}}
+DEMO_VIDEO_FRAMES = 8
+DEMO_FRAME = (512, 910)  # make_multiperson_frame's and make_multiperson_sequence's
+PROFILE_CALLS = 20
+
+
+def path_counts() -> dict:
+    """The wrappers' launch counts: K3 forward (`same`), QK1, QK2, K1 and its
+    forms."""
+    from metro_pose3d_tpu_torch.ops import int8, pool, warp
+
+    return {"pool": pool.MODE_LAUNCHES["same"], "qk1": int8.launches("int8_conv"),
+            "qk2": int8.launches("int8_elementwise"), "warp": warp.LAUNCHES,
+            "warp_forms": dict(warp.KERNEL_LAUNCHES)}
+
+
+def reset_path_counts() -> None:
+    from metro_pose3d_tpu_torch.ops import int8, pool, warp
+
+    pool.reset_launches()
+    warp.reset_launches()
+    int8.reset_launches()
+
+
+def aot_request(rng, dev) -> tuple:
+    crops = rng.randint(0, 256, (AOT_BATCH, AOT_SIDE, AOT_SIDE, 3)).astype(np.uint8)
+    intr = crop_params(rng, AOT_BATCH, TILE, AOT_SIDE, "normal")[3]
+    return torch.from_numpy(crops).to(dev), torch.from_numpy(intr).to(dev)
+
+
+def replay_vs_eager(name: str, got: dict, want: dict, what: str) -> str:
+    """The replay's outputs against the eager call's on the same inputs:
+    equal bits expected (the graph holds the eager call's kernels); a
+    difference is printed and held to PARITY_TOL (bf16) or INT8_PARITY_TOL
+    (int8: max and mean)."""
+    if set(got) != set(want):
+        fail(f"[23 aot] {name} {what}: keys {sorted(got)} vs {sorted(want)}")
+    if all(same_bits(got[k], want[k]) for k in want):
+        return "equal bits"
+    diffs = {k: (float((got[k].float() - want[k].float()).abs().max()),
+                 float((got[k].float() - want[k].float()).abs().mean())) for k in want}
+    print(f"[23 aot] {name} {what}: replay and eager differ (max, mean) "
+          + ", ".join(f"{k} {a:.2e}, {m:.2e}" for k, (a, m) in diffs.items())
+          + ": a kernel of the graph chose another algorithm or order than the eager call's")
+    for k, (a, m) in diffs.items():
+        tol = INT8_PARITY_TOL[k] if name == "int8" else (PARITY_TOL[k], float("inf"))
+        if not (a <= tol[0] and m <= tol[1]):
+            fail(f"[23 aot] {name} {what}: {k} replay vs eager max {a:.3e} mean {m:.3e} "
+                 f"(tol {tol})")
+    return "within " + ("INT8_PARITY_TOL" if name == "int8" else "PARITY_TOL")
+
+
+def aot_leg(name: str, bundle: str, rng, dev, card) -> dict:
+    """(a) for one bundle: load to first answer, eager and through
+    `aot_compile`; steady ms a batch, eager and replayed; replay against
+    eager on the same inputs and on fresh ones, an earlier answer untouched
+    by a later replay; a wrong shape refused; the launches of a replay."""
+    from metro_pose3d_tpu_torch.export import aot_compile, load_exported
+    from metro_pose3d_tpu_torch.probes import time_ms
+
+    (c1, i1), (c2, i2) = aot_request(rng, dev), aot_request(rng, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, model_e, fn_e = load_exported(bundle, flip_tta=True, device=dev)
+    fn_e(model_e, c1, i1)
+    torch.cuda.synchronize()
+    eager_first_s = time.perf_counter() - t0
+    del model_e, fn_e
+    t0 = time.perf_counter()
+    _, model, fn = load_exported(bundle, flip_tta=True, device=dev)
+    compiled = aot_compile(fn, model, AOT_BATCH, AOT_SIDE)
+    compile_s = time.perf_counter() - t0
+    got1 = compiled(model, c1, i1)
+    torch.cuda.synchronize()
+    compiled_first_s = time.perf_counter() - t0
+    kept = {k: v.clone() for k, v in got1.items()}
+    same1 = replay_vs_eager(name, got1, fn(model, c1, i1), "same inputs")
+    got2 = compiled(model, c2, i2)
+    same2 = replay_vs_eager(name, got2, fn(model, c2, i2), "fresh inputs")
+    if not all(torch.equal(got1[k], kept[k]) for k in kept):
+        fail(f"[23 aot] {name}: a later replay changed an answer the caller holds")
+    for k, shape in (("pose3d_rootrel", (AOT_BATCH, 17, 3)), ("pose2d_px", (AOT_BATCH, 17, 2)),
+                     ("pose3d_abs", (AOT_BATCH, 17, 3))):
+        if tuple(got2[k].shape) != shape or not bool(torch.isfinite(got2[k]).all()):
+            fail(f"[23 aot] {name}: replay output {k} {tuple(got2[k].shape)} or not finite")
+    try:
+        compiled(model, c1[: AOT_BATCH // 2], i1[: AOT_BATCH // 2])
+    except TypeError as e:
+        refusal = str(e)
+    else:
+        fail(f"[23 aot] {name}: a batch of {AOT_BATCH // 2} was not refused")
+    reset_path_counts()
+    for _ in range(AOT_COUNTED):
+        compiled(model, c2, i2)
+    torch.cuda.synchronize()
+    counts = path_counts()
+    want = {k: AOT_COUNTED * n for k, n in AOT_PER_REPLAY[name].items()}
+    if {k: counts[k] for k in want} != want or counts["warp"]:
+        fail(f"[23 aot] {name}: {AOT_COUNTED} replays counted {counts}, want {want} (launches "
+             f"a replay, from the capture: {compiled.launches})")
+    eager_ms = time_ms(lambda: fn(model, c1, i1), iters=AOT_TIMED, warmup=2)
+    replay_ms = time_ms(lambda: compiled(model, c1, i1), iters=AOT_TIMED, warmup=2)
+    print(f"[23 aot] {name} Config() R50@{AOT_SIDE} crop-in TTA B={AOT_BATCH} from a "
+          f"load_exported bundle: load to first answer eager {eager_first_s:.2f} s, "
+          f"aot_compile {compiled_first_s:.2f} s ({compile_s:.2f} s of it loading, warming up "
+          f"and capturing; this process has built the kernels already); steady eager "
+          f"{eager_ms:.2f} ms a batch, replay {replay_ms:.2f} ms (copies in and clones out "
+          f"included), {AOT_BATCH * 1000 / replay_ms:.1f} crops/s; replay vs eager: {same1}, "
+          f"fresh inputs {same2}; an earlier answer kept its bits; batch {AOT_BATCH // 2} "
+          f"refused ({refusal}); a replay launches K3 {AOT_PER_REPLAY[name]['pool']}, QK1 "
+          f"{AOT_PER_REPLAY[name]['qk1']}, QK2 {AOT_PER_REPLAY[name]['qk2']}  [{card}]")
+    bad = None
+    if name == "bf16":  # a capture that fails raises, and nothing falls back to eager
+
+        def syncing(model_, crops, intrinsics):
+            out = fn(model_, crops, intrinsics)
+            if float(out["pose3d_abs"].abs().max()) < 0:  # a host read: no capture allows it
+                fail("unreachable")
+            return out
+
+        try:
+            aot_compile(syncing, model, AOT_BATCH, AOT_SIDE)
+        except RuntimeError as e:
+            if "into a CUDA graph failed" not in str(e):
+                raise
+            bad = str(e).splitlines()[0][:200]
+        else:
+            fail("[23 aot] a capture of a function that reads the card on the host did not raise")
+        again = compiled(model, c1, i1)
+        if not all(torch.equal(again[k], kept[k]) for k in kept):
+            fail("[23 aot] after the failed capture the graph gives other answers")
+        print(f"[23 aot] a capture that reads the card on the host raised: {bad}; the graph "
+              f"replays as before")
+    return {"counts": counts, "per_replay": AOT_PER_REPLAY[name], "eager_first_s": eager_first_s,
+            "compiled_first_s": compiled_first_s, "eager_ms": eager_ms, "replay_ms": replay_ms,
+            "parity": [same1, same2]}
+
+
+def phase_finish(rng, dev, card) -> dict:
+    """23: `export.aot_compile` as a CUDA graph (bf16, and int8 calibrated as
+    phase 17 calibrates), the demo, and `utils/profiling.py`. -> the
+    kernels' launches and each bundle's launches a replay."""
+    from metro_pose3d_tpu_torch import demo
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+    from metro_pose3d_tpu_torch.data.synthetic import make_multiperson_sequence
+    from metro_pose3d_tpu_torch.export import export_model, load_exported
+    from metro_pose3d_tpu_torch.init import init_metro_model
+    from metro_pose3d_tpu_torch.models.quantize import calibrate
+    from metro_pose3d_tpu_torch.ops.color import normalize
+    from metro_pose3d_tpu_torch.utils import improc, profiling
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_finish_")
+    total = {"pool": 0, "qk1": 0, "qk2": 0, "warp_forms": dict.fromkeys(
+        [("normalize_div", torch.bfloat16)], 0)}
+    per_replay = {}
+    try:
+        # (a) the bundles: seeded bf16 weights, and the same calibrated int8
+        cfg = Config()
+        model = init_metro_model(cfg.model, SEED, dev)
+        export_model(cfg, model, os.path.join(tmp, "bf16"))
+        cfg8 = apply_overrides(Config(), {"model.quantize": "int8"})
+        model8 = init_metro_model(cfg8.model, SEED, dev)
+        model8.load_state_dict(model.state_dict(), strict=False)
+        calibrate(model8, [normalize(torch.from_numpy(rng.randint(
+            0, 256, (BATCH, AOT_SIDE, AOT_SIDE, 3)).astype(np.uint8)).to(dev).float() / 255.0)
+            for _ in range(3)])
+        export_model(cfg8, model8, os.path.join(tmp, "int8"))
+        del model, model8
+        legs = {}
+        for name in ("bf16", "int8"):
+            legs[name] = aot_leg(name, os.path.join(tmp, name), rng, dev, card)
+            torch.cuda.empty_cache()
+            per_replay[name] = legs[name]["per_replay"]
+            for k in ("pool", "qk1", "qk2"):
+                total[k] += legs[name]["counts"][k]
+
+        # (c) the demo on the card: a PNG of the synthetic frame, and --video
+        reset_path_counts()
+        png, clip = os.path.join(tmp, "demo.png"), os.path.join(tmp, "clip")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            rcs = (demo.main(["--out", png]),
+                   demo.main(["--video", str(DEMO_VIDEO_FRAMES), "--out", clip]))
+        demo_s = time.perf_counter() - t0
+        counts = path_counts()
+        img = improc.imread(png)
+        frames = np.load(clip + ".npz")["frames"]
+        h, w = DEMO_FRAME
+        n_frames = 1 + DEMO_VIDEO_FRAMES
+        div = counts["warp_forms"][("normalize_div", torch.bfloat16)]
+        if (rcs != (0, 0) or img.shape != (h, w + h, 3)
+                or frames.shape != (DEMO_VIDEO_FRAMES, h, w, 3) or frames.dtype != np.uint8):
+            fail(f"[23 demo] rcs {rcs}, PNG {img.shape}, frames {frames.shape} {frames.dtype}; "
+                 f"printed {printed.getvalue()[-500:]}")
+        if (div, counts["pool"]) != (n_frames, n_frames):
+            fail(f"[23 demo] {n_frames} frames launched K1 normalize_div bf16 {div} and K3 "
+                 f"{counts['pool']} times (want one of each a frame): {counts}")
+        loaded = sorted(m for m in ("cv2", "matplotlib") if m in sys.modules)
+        if loaded:
+            fail(f"[23 demo] the demo imported {loaded}")
+        changed = (frames != np.stack([f for f, *_ in make_multiperson_sequence(
+            3, DEMO_VIDEO_FRAMES, seed=0)])).any(-1)
+        total["pool"] += counts["pool"]
+        total["warp_forms"][("normalize_div", torch.bfloat16)] += div
+        print(f"[23 demo] demo.main on the card (Config() R50@256 bf16, seeded weights): "
+              f"{png} {img.shape[1]}x{img.shape[0]} PNG read back by the port, and --video "
+              f"{DEMO_VIDEO_FRAMES}: {frames.shape} overlays, {changed.mean():.4%} of their "
+              f"pixels drawn, in {demo_s:.1f} s; K1 normalize_div bf16 and K3 once a frame; "
+              f"neither cv2 nor matplotlib imported")
+
+        # (d) profiling: StepTimer and sync around eager predicts, the
+        # memory statistics, a trace
+        reset_path_counts()
+        _, model, fn = load_exported(os.path.join(tmp, "bf16"), flip_tta=True, device=dev)
+        c, i = aot_request(rng, dev)
+        fn(model, c, i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timer = profiling.StepTimer(skip=2)
+        timer.reset_clock()
+        for _ in range(PROFILE_CALLS):
+            out = fn(model, c, i)
+            profiling.sync(out)
+            timer.tick(AOT_BATCH)
+        summary = timer.summary(items_per_step=AOT_BATCH)
+        mem = profiling.device_memory_stats()
+        limit = torch.cuda.get_device_properties(0).total_memory
+        m0 = mem.get("cuda:0", {})
+        if summary["steps"] != PROFILE_CALLS or not summary["p50_ms"] > 0:
+            fail(f"[23 profiling] StepTimer summary {summary}")
+        if not (m0.get("peak_bytes_in_use", 0) > 0 and m0.get("bytes_limit") == limit
+                and len(mem) == torch.cuda.device_count()):
+            fail(f"[23 profiling] device_memory_stats {mem} (card total {limit})")
+        # the profiler may miss launches of a window (`launched_kernels`), so
+        # a trace that names no stem pool kernel is taken again, eight at most
+        for window in range(1, 9):
+            trace_dir = os.path.join(tmp, f"trace{window}")
+            with profiling.trace(trace_dir):
+                for _ in range(3):
+                    fn(model, c, i)
+            with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+            pool_kernels = sorted(k for k in kernels if "maxpool3x3s2_kernel" in k)
+            if pool_kernels:
+                break
+        else:
+            fail(f"[23 profiling] eight traces named no stem pool kernel; the last named "
+                 f"{len(kernels)} kernels: {sorted(kernels)[:10]}")
+        total["pool"] += path_counts()["pool"]
+        print(f"[23 profiling] StepTimer over {PROFILE_CALLS} eager predicts (Config() bf16, "
+              f"crop-in TTA B={AOT_BATCH}), each synced: {summary}; device_memory_stats cuda:0 "
+              f"in use {m0['bytes_in_use'] / 2**30:.2f} GiB, peak "
+              f"{m0['peak_bytes_in_use'] / 2**30:.2f} GiB, limit {m0['bytes_limit'] / 2**30:.2f} "
+              f"GiB; trace() wrote {profiling.TRACE_FILE} with {len(kernels)} kernels, the stem "
+              f"pool's among them ({pool_kernels[0][:60]}), in trace {window} of at most 8  "
+              f"[{card}]")
+        del model, fn, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[23 finish] phase time {time.perf_counter() - t_phase:.1f} s")
+    total["per_replay"] = per_replay
+    total["legs"] = legs
+    return total
 
 
 @contextlib.contextmanager
@@ -3928,8 +4252,12 @@ def main() -> int:
     mp = phase_multiperson(rng, dev, card)  # 20
     dp = phase_dp(dev, card, resident_ms["no background bank"])  # 21
     real = phase_real_files(dev, card)  # 22
-    int8_records[0]["launches"] += dataset["qk1"] + mp["qk1"]
-    int8_records[1]["launches"] += dataset["qk2"] + mp["qk2"]
+    fin = phase_finish(rng, dev, card)  # 23
+    int8_records[0]["launches"] += dataset["qk1"] + mp["qk1"] + fin["qk1"]
+    int8_records[1]["launches"] += dataset["qk2"] + mp["qk2"] + fin["qk2"]
+    # launches of one replay of phase 23's CUDA graphs, by bundle
+    int8_records[0]["graph_replay_launches"] = {k: v["qk1"] for k, v in fin["per_replay"].items()}
+    int8_records[1]["graph_replay_launches"] = {k: v["qk2"] for k, v in fin["per_replay"].items()}
 
     def kernel(name, source, replaces, n_launches, err, ms, plain_ms, bnd, library_ms, **more):
         return {"name": name, "route": "cuda",
@@ -3952,10 +4280,11 @@ def main() -> int:
         kernel("maxpool3x3s2_same", "maxpool3x3s2.cu", pallas_pool,
                launches["pool"] + train_launches["pool"] + fam_launches["d_twofive"]["pool_same"]
                + int8_path["pool"] + feed["pool"] + dataset["pool"] + mp["pool"] + dp["pool"]
-               + real["pool"],
+               + real["pool"] + fin["pool"],
                pool_err, pool_ms, pool_plain_ms, pool_bound, None,
                bound_share=pool_bound[0] / pool_ms, two_calls_ms=pool_two_calls_ms,
-               ms_scalar=pool_scalar_ms),
+               ms_scalar=pool_scalar_ms,
+               graph_replay_launches={k: v["pool"] for k, v in fin["per_replay"].items()}),
         kernel("maxpool3x3s2_same_bwd", "maxpool3x3s2_bwd.cu", pallas_pool,
                train_launches["pool_bwd"] + feed["pool_bwd"] + mp["pool_bwd"] + dp["pool_bwd"]
                + real["pool_bwd"],
@@ -3971,7 +4300,8 @@ def main() -> int:
           for (mode, way), r in modes.items()],
         kernel("warp_crop", "warp_crop.cu", "metro_pose3d_tpu/ops/warp_pallas.py:415",
                launches["warp"] + train_launches["warp"] + int8_path["warp"] + feed["warp"]
-               + dataset["warp"] + mp["warp"] + dp["warp"] + real["warp"],
+               + dataset["warp"] + mp["warp"] + dp["warp"] + real["warp"]
+               + sum(fin["warp_forms"].values()),
                warp_max, none["ms"],
                none["plain_ms"],
                (none["bound_ms"], none["bound_by"]), None, call_ms=none["call_ms"],
@@ -3982,7 +4312,8 @@ def main() -> int:
                                                 + dataset["warp_forms"].get((e, d), 0)
                                                 + mp["warp_forms"][e, d]
                                                 + (dp["warp_unit"] if e == "unit" else 0)
-                                                + real["warp_forms"].get((e, d), 0)}
+                                                + real["warp_forms"].get((e, d), 0)
+                                                + fin["warp_forms"].get((e, d), 0)}
                       for (e, d), r in warp_forms.items()}),
         kernel("occluder_paste", "occluder_paste.cu", "metro_pose3d_tpu/ops/warp_pallas.py:507",
                train_launches["occluder"] + feed["occluder"] + mp["occluder"] + dp["occluder"]

@@ -109,9 +109,9 @@ class BatchNorm(nn.Module):
     Where a `torch.distributed` process group is up, "the batch" is the
     global batch, as under the JAX package's data mesh: the moments are
     summed over the ranks (`parallel/mesh.py`), so the running statistics
-    stay the same on every rank. Ghost BN groups stay on their rank; a group
-    that would span ranks raises ValueError. Without a group no collective
-    is issued.
+    stay the same on every rank, and ghost BN groups are groups of the
+    global batch, as in the JAX package: a group may take rows of several
+    ranks. Without a group no collective is issued.
     """
 
     def __init__(self, c: int, eps: float, momentum: float = 0.99, group_size: int = 0,
@@ -157,23 +157,23 @@ class BatchNorm(nn.Module):
         return sums[:c] / sums[-1], sums[c:-1] / sums[-1]
 
     def _ghost(self, xf):
-        """-> (normalised x, full-batch mean, full-batch variance). Under a
-        process group the groups stay on their rank, and the running
-        statistics take the moments of every group of every rank. Under more
-        than one rank a group size above the local batch raises, since that
-        group would span ranks (JAX's `min(group_size, global batch)` makes
-        it one group of several ranks' rows); a size at or above the batch
-        means one group of all of it only in a single process."""
+        """-> (normalised x, full-batch mean, full-batch variance), with the
+        JAX package's rule over the global batch of B rows (rank r holds rows
+        [r b, (r + 1) b), as `parallel/distributed.py::local_batch_slice`
+        deals them): groups of gs = min(group_size, B) rows, ValueError
+        unless gs divides B. Where gs divides the local batch every group
+        lies inside one rank (always so without a process group): the groups
+        are normalised on the rank, and one collective, without gradients,
+        gathers their moments for the running statistics. Otherwise
+        `_spanning_groups` sums each group's moments over the ranks."""
         b = xf.shape[0]
-        world = mesh.process_index_count()[1]
-        gs = min(self.group_size, b * world)
+        rank, world = mesh.process_index_count()
+        total = b * world
+        gs = min(self.group_size, total)
+        if total % gs:
+            raise ValueError(f"batch {total} not divisible by bn group size {gs}")
         if b % gs:
-            if world > 1:
-                raise ValueError(
-                    f"a bn group of {gs} rows would span ranks: the local batch of {b} "
-                    f"rows on each of {world} ranks is not a multiple of it (global "
-                    f"batch {b * world}); ghost batch norm groups must lie within a rank")
-            raise ValueError(f"batch {b} not divisible by bn group size {gs}")
+            return self._spanning_groups(xf, rank * b, gs, total // gs)
         xg = xf.reshape(b // gs, gs, *xf.shape[1:])
         gmean = xg.mean(dim=(1, 3, 4))  # [G, C]
         gmean2 = (xg * xg).mean(dim=(1, 3, 4))
@@ -191,6 +191,37 @@ class BatchNorm(nn.Module):
             sums = mesh.global_sum(torch.cat([gmean.sum(dim=0), gmean2.sum(dim=0), n_groups]))
             full_mean = sums[:c] / sums[-1]
             return y, full_mean, sums[c:-1] / sums[-1] - full_mean * full_mean
+
+    def _spanning_groups(self, xf, first: int, gs: int, n_groups: int):
+        """Ghost BN where groups cross rank boundaries: this rank's rows are
+        global rows [first, first + b). Each rank writes the sums of x and
+        x^2 and the element count of its share of every group into one
+        [G, 2C + 1] buffer (zero for the groups it holds no row of); one
+        `global_sum`, with gradients, adds the buffers; every row normalises
+        with its own group's moments, and the running statistics take the
+        mean of the G groups' moments, as the JAX package's do."""
+        b, c, h, w = xf.shape
+        g0, g1 = first // gs, (first + b - 1) // gs  # the groups of this rank's rows
+        spans = [(max(g * gs, first) - first, min((g + 1) * gs, first + b) - first)
+                 for g in range(g0, g1 + 1)]
+        parts = []
+        for lo, hi in spans:
+            seg = xf[lo:hi]
+            parts.append(torch.cat([seg.sum(dim=(0, 2, 3)), (seg * seg).sum(dim=(0, 2, 3)),
+                                    xf.new_full((1,), float((hi - lo) * h * w))]))
+        sums = mesh.global_sum(torch.cat([xf.new_zeros(g0, 2 * c + 1), torch.stack(parts),
+                                          xf.new_zeros(n_groups - 1 - g1, 2 * c + 1)]))
+        gmean = sums[:, :c] / sums[:, -1:]  # [G, C]
+        gmean2 = sums[:, c:-1] / sums[:, -1:]
+        gvar = gmean2 - gmean * gmean
+        view = (1, -1, 1, 1)
+        y = torch.cat([(xf[lo:hi] - gmean[g0 + i].view(view))
+                       * torch.rsqrt(gvar[g0 + i] + self.eps).view(view)
+                       for i, (lo, hi) in enumerate(spans)])
+        y = y * self.scale.view(view) + self.bias.view(view)
+        with torch.no_grad():
+            full_mean = gmean.mean(dim=0)
+            return y, full_mean, gmean2.mean(dim=0) - full_mean * full_mean
 
 
 QUANTIZE_LAYOUTS = ("nhwc", "nchw")

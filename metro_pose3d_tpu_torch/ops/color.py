@@ -70,3 +70,8 @@ def composite_background(sources_u8, masks_u8, bg_bank_u8, bg_params):
 def normalize(images01):
     """[0,1] float images -> model input range [-1, 1]."""
     return images01 * (255.0 * C.IMAGE_SCALE) + C.IMAGE_OFFSET
+
+
+def denormalize(images):
+    """Model input range [-1, 1] -> [0, 1]: the inverse of `normalize`."""
+    return (images - C.IMAGE_OFFSET) / (255.0 * C.IMAGE_SCALE)

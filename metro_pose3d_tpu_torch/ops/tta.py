@@ -15,9 +15,10 @@ def flip_crop(crops: torch.Tensor) -> torch.Tensor:
 
 
 def unflip_pose3d(pose_mm: torch.Tensor, mirror_mapping: torch.Tensor) -> torch.Tensor:
-    """Un-mirror a centred metric 3D pose: x -> -x, then the joint permutation."""
-    sign = torch.tensor([-1.0, 1.0, 1.0], dtype=pose_mm.dtype, device=pose_mm.device)
-    return (pose_mm * sign)[..., mirror_mapping, :]
+    """Un-mirror a centred metric 3D pose: x -> -x, then the joint permutation.
+    (No constant is copied to the device, so a CUDA graph can capture it.)"""
+    flipped = torch.cat([-pose_mm[..., :1], pose_mm[..., 1:]], dim=-1)
+    return flipped[..., mirror_mapping, :]
 
 
 def unflip_pose2d(pose_px: torch.Tensor, mirror_mapping: torch.Tensor,

@@ -17,6 +17,7 @@ JAX loader's `skip_batches` does.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import logging
@@ -44,6 +45,7 @@ from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
 from metro_pose3d_tpu_torch.train.joint_mapping import name_mapping, remap_prepared
 from metro_pose3d_tpu_torch.train.loop import make_lr_schedule, make_train_step
 from metro_pose3d_tpu_torch.train.state import create_train_state
+from metro_pose3d_tpu_torch.utils.profiling import trace
 from metro_pose3d_tpu_torch.utils.writers import make_metric_writer
 
 log = logging.getLogger("metro_torch.train")
@@ -277,11 +279,9 @@ def _run(cfg: Config, feed: Callable[[int], Iterator[dict]], occluder_bank: np.n
         done = start_step
         while done < total:
             if prof_at is not None and done == prof_at:
-                activities = [torch.profiler.ProfilerActivity.CPU]
-                if device.type == "cuda":
-                    activities.append(torch.profiler.ProfilerActivity.CUDA)
-                prof = torch.profiler.profile(activities=activities)
-                prof.start()
+                prof = contextlib.ExitStack()
+                prof.enter_context(trace(os.path.join(t.logdir, "profile"),
+                                         device if device.type == "cuda" else None))
             t_wait = time.perf_counter()
             batch = next(it)
             wait += time.perf_counter() - t_wait
@@ -289,7 +289,7 @@ def _run(cfg: Config, feed: Callable[[int], Iterator[dict]], occluder_bank: np.n
             n_since += int(batch["is_3d"].shape[0])
             done += 1
             if prof is not None and done - prof_at >= t.profile_steps:
-                _stop_profiler(prof, device, t.logdir)
+                _stop_profiler(prof, t.logdir)
                 prof, prof_at = None, None
 
             if done % t.log_every == 0 or done == total:
@@ -335,7 +335,7 @@ def _run(cfg: Config, feed: Callable[[int], Iterator[dict]], occluder_bank: np.n
         _close(src)
         writer.close()
     if prof is not None:  # the run ended inside the traced window
-        _stop_profiler(prof, device, t.logdir)
+        _stop_profiler(prof, t.logdir)
     ckpt.wait()
     if primary:
         with open(os.path.join(t.logdir, "history.json"), "w") as f:
@@ -352,11 +352,7 @@ def _close(src) -> None:
             pass  # still running in the prefetch thread (the run failed); it ends with it
 
 
-def _stop_profiler(prof, device, logdir: str) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    prof.stop()
-    out = os.path.join(logdir, "profile")
-    os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, "trace.json"))
-    log.info("wrote a torch.profiler trace to %s", out)
+def _stop_profiler(prof: contextlib.ExitStack, logdir: str) -> None:
+    """End the `utils/profiling.py::trace` window, which writes its trace."""
+    prof.close()
+    log.info("wrote a torch.profiler trace to %s", os.path.join(logdir, "profile"))

@@ -17,7 +17,8 @@ imported inside `imread`. `imread_gray` reads an image as `cv2.imread(path,
 cv2.IMREAD_GRAYSCALE)` does, for masks: a colour or palette PNG becomes
 libpng's luma of its colours. Files that are damaged raise `CorruptImage`,
 where cv2.imread gives None; files of a kind the port does not read raise a
-plain ValueError. `resize` is cv2's INTER_AREA and INTER_LINEAR in C
+plain ValueError. `encode_png` / `imwrite_png` write 8-bit gray, RGB and
+RGBA PNGs with zlib alone. `resize` is cv2's INTER_AREA and INTER_LINEAR in C
 (`native/resize.c`). The tile copy runs in C (`native/croprep.c`) where the
 compiler builds it, in numpy otherwise; both give the same bytes.
 Everything returns numpy arrays, RGB where they have colour. This module
@@ -280,6 +281,35 @@ def imread_gray(path: str) -> np.ndarray:
     if lower.endswith(".png"):
         return decode_png_bytes(_read_bytes(path), gray=True, name=str(path))
     raise ValueError(f"{path}: the port reads masks from JPEG and PNG files only")
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 [H, W] (gray), [H, W, 3] (RGB) or [H, W, 4] (RGBA) -> the bytes
+    of an 8-bit, non-interlaced PNG: every row unfiltered (filter type 0),
+    the rows deflated by zlib. `decode_png_bytes` reads it back."""
+    img = np.ascontiguousarray(img)
+    ch = 1 if img.ndim == 2 else img.shape[-1]
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or ch not in (1, 3, 4):
+        raise ValueError(f"encode_png takes uint8 [H, W], [H, W, 3] or [H, W, 4], "
+                         f"got {img.dtype} {list(img.shape)}")
+    h, w = img.shape[:2]
+    raw = np.zeros((h, 1 + w * ch), np.uint8)  # each row: filter byte 0, then its pixels
+    raw[:, 1:] = img.reshape(h, w * ch)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[ch], 0, 0, 0)
+    return (PNG_SIGNATURE + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def imwrite_png(path: str, img: np.ndarray) -> str:
+    """Write `img` (see `encode_png`) to `path` as a PNG -> path."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+    return path
 
 
 class _FrameCache:

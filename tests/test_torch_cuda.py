@@ -771,6 +771,50 @@ def test_tiny_int8_serving_on_card_matches_cpu(cuda, over):
                                                                   "pose2d_px": 0.5}[key], key
 
 
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_aot_compile_replays_the_eager_predict(cuda, quantize):
+    """`export.aot_compile` on the card: a CUDA graph whose replay gives the
+    eager call's bits on fresh inputs, leaves earlier answers alone, refuses
+    another shape, and counts one replay's launches at each replay (the
+    capture counts none)."""
+    from metro_pose3d_tpu_torch.export import aot_compile
+    from metro_pose3d_tpu_torch.models.quantize import calibrate
+    from metro_pose3d_tpu_torch.ops import int8
+
+    cfg = apply_overrides(Config(), {"model.backbone": "tiny", "model.proc_side": "64",
+                                     "model.depth": "4", "model.quantize": quantize})
+    model = init_metro_model(cfg.model, 3, cuda)
+    rng = np.random.RandomState(3)
+    if quantize == "int8":
+        calibrate(model, [torch.from_numpy(rng.uniform(-1, 1, (4, 64, 64, 3)).astype(
+            np.float32)).to(cuda) for _ in range(2)])
+    fn = make_predict_fn(cfg, np.arange(17), root_index=0, flip_tta=True)
+    intr = torch.tensor([[90.0, 0, 31.5], [0, 90.0, 31.5], [0, 0, 1]]).expand(4, 3, 3)
+    pool.reset_launches()
+    int8.reset_launches()
+    compiled = aot_compile(fn, model, 4, 64)
+    assert compiled.graph is not None and pool.LAUNCHES == 2  # the two warm-up calls
+    counted = (pool.LAUNCHES, int8.launches())
+    first = None
+    for _ in range(2):
+        crops = torch.from_numpy(rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8)).to(cuda)
+        got = compiled(model, crops, intr.contiguous())
+        want = fn(model, crops, intr.contiguous().to(cuda))
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+        if first is None:
+            first, kept = got, {k: v.clone() for k, v in got.items()}
+    for key in kept:
+        assert torch.equal(first[key], kept[key]), key
+    per = {k: n for d in compiled.launches for k, n in d.items()}
+    assert per and (pool.LAUNCHES, int8.launches()) == (
+        counted[0] + 4 * sum(n for k, n in per.items() if k[0] == "fwd"),
+        counted[1] + 4 * sum(n for k, n in per.items() if k[0].startswith("int8")))
+    assert (sum(n for k, n in per.items() if k[0] == "int8_conv") > 0) == (quantize == "int8")
+    with pytest.raises(TypeError, match="compiled for"):
+        compiled(model, crops[:2], intr[:2])
+
+
 # --- nvJPEG: the JPEG decode of a machine without libjpeg ---------------------------
 
 REAL_JPEG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "real_files",

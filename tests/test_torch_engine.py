@@ -144,8 +144,9 @@ def test_pose_estimator_matches_predict_fn(golden_inputs):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke, import without jax, flax or
-    cv2 and without any module of the JAX package."""
+    """Every module of the port (the demo, export and profiling among them),
+    and chip_smoke, import without jax, flax, cv2 or matplotlib and without
+    any module of the JAX package."""
     code = (
         "import pkgutil, importlib, sys, metro_pose3d_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -159,8 +160,10 @@ def test_port_imports_no_jax():
         "import metro_pose3d_tpu_torch.geom.joints, metro_pose3d_tpu_torch.reference_constants\n"
         "import metro_pose3d_tpu_torch.utils.convert_backbone\n"
         "import metro_pose3d_tpu_torch.probes.gather, metro_pose3d_tpu_torch.probes.prims\n"
+        "import metro_pose3d_tpu_torch.demo, metro_pose3d_tpu_torch.export\n"
+        "import metro_pose3d_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in ('jax', 'flax', 'cv2') if m in sys.modules)\n"
+        "bad = sorted(m for m in ('jax', 'flax', 'cv2', 'matplotlib') if m in sys.modules)\n"
         "bad += sorted(k for k in sys.modules if k == 'metro_pose3d_tpu'\n"
         "              or k.startswith('metro_pose3d_tpu.'))\n"
         "n = sum(k.startswith('metro_pose3d_tpu_torch') for k in sys.modules)\n"

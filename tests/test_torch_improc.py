@@ -192,6 +192,29 @@ def test_png_equals_cv2(tmp_path, shape):
                                           cv2.imread(p, cv2.IMREAD_GRAYSCALE))
 
 
+@pytest.mark.parametrize("shape", PNG_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_png_writer_round_trips_and_cv2_reads_it(tmp_path, shape):
+    """`imwrite_png` (zlib alone, the demo's writer) -> the port's reader
+    and cv2's give back the pixels: gray replicated, alpha dropped."""
+    img = np.random.default_rng(shape[0] * 7 + len(shape)).integers(0, 256, shape, np.uint8)
+    p = improc.imwrite_png(str(tmp_path / "w.png"), img)
+    rgb = np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img[..., :3]
+    np.testing.assert_array_equal(improc.imread(p), rgb)
+    np.testing.assert_array_equal(cv2.imread(p, cv2.IMREAD_UNCHANGED),
+                                  img if img.ndim == 2 else cv2.cvtColor(
+                                      img, cv2.COLOR_RGB2BGR if shape[2] == 3
+                                      else cv2.COLOR_RGBA2BGRA))
+    if img.ndim == 2:
+        np.testing.assert_array_equal(improc.imread_gray(p), img)
+
+
+def test_png_writer_refuses_other_arrays():
+    for bad in (np.zeros((4, 4), np.uint16), np.zeros((4, 4, 2), np.uint8),
+                np.zeros(4, np.uint8)):
+        with pytest.raises(ValueError, match="encode_png takes uint8"):
+            improc.encode_png(bad)
+
+
 @pytest.mark.parametrize("filters", [[0], [1], [2], [3], [4], [4, 3, 2, 1, 0]],
                          ids=["none", "sub", "up", "average", "paeth", "mixed"])
 @pytest.mark.parametrize("channels", [1, 3, 4])

@@ -72,6 +72,20 @@ def test_normalize():
     _close(color.normalize(_t(x)), jcolor.normalize(jnp.asarray(x)), atol=0)
 
 
+def test_denormalize():
+    x = np.random.RandomState(5).uniform(-1.2, 1.2, (2, 8, 8, 3)).astype(np.float32)
+    _close(color.denormalize(_t(x)), jcolor.denormalize(jnp.asarray(x)), atol=0)
+
+
+def test_denormalize_inverts_normalize():
+    """Within a float32 ulp of 1: normalize's product and offset round once
+    each, and the division and the offset of the way back once each."""
+    x = np.random.RandomState(6).uniform(0, 1, (2, 8, 8, 3)).astype(np.float32)
+    _close(color.denormalize(color.normalize(_t(x))), x, atol=2 * np.spacing(np.float32(1)))
+    u8 = np.arange(256, dtype=np.float32) / 255.0
+    _close(color.denormalize(color.normalize(_t(u8))) * 255.0, np.arange(256), atol=1e-4)
+
+
 def test_tta_flip_and_unflip():
     rng = np.random.RandomState(4)
     crops = rng.uniform(-1, 1, (2, 8, 8, 3)).astype(np.float32)

@@ -9,8 +9,10 @@ process group through a `file://` rendezvous in the run's directory.
     NaN joints; the ranks hold different numbers of valid joints), at
     `test_torch_train.py`'s tolerances; against the port's own step in one
     process on that batch, at reduction-order tolerances; every rank's
-    parameters and BN statistics bit for bit equal. Ghost BN with groups of
-    half the local batch against JAX, and a group that would span ranks.
+    parameters and BN statistics bit for bit equal. Ghost BN against JAX
+    with groups of half the local batch, groups that span ranks (twice the
+    local batch) and groups that straddle them unevenly (each rank's first
+    rows only), and a group size that does not divide the global batch.
   * trainer: `train()` on 2 ranks over `SyntheticDataset`, cut at step 6
     (checkpoint and validation at 3 and 6) and resumed to 10, against an
     uninterrupted 2-rank run that `main --train` makes under torchrun's
@@ -83,6 +85,18 @@ SAME_STATS_ATOL = 1e-6
 SAME_PARAM_ATOL = 1e-7  # for all but SAME_PARAM_OUTLIERS of the parameters
 SAME_PARAM_OUTLIERS = 1e-3
 SAME_PARAM_MAX_LR = 0.1  # the rest, in units of the learning rate
+# ghost BN cases, by world: name -> (model.bn_group_size, the rows each rank
+# takes from the front of its batch, None for all); the global batch is the
+# ranks' rows in rank order. "ghost": groups inside a rank; "span": groups
+# of two ranks' rows; "straddle": groups that cross a rank boundary
+# part-way (global 12 rows, groups of 4).
+GHOST_CASES = {
+    2: {"ghost": (4, None), "span": (16, None), "straddle": (4, 6)},
+    4: {"span": (8, None), "straddle": (4, 3)},
+}
+ACROSS_RANKS = [(w, c) for w, cases in GHOST_CASES.items() for c in cases if c != "ghost"]
+ACROSS_IDS = [f"{w}ranks-{c}" for w, c in ACROSS_RANKS]
+INDIVISIBLE_GS = 3  # no global batch of these tests is a multiple of it
 
 
 # --- the ranks ---------------------------------------------------------------
@@ -129,32 +143,32 @@ def _run_steps(rank: int, world: int, outdir: str) -> dict:
     batches = [dict(np.load(os.path.join(outdir, f"batch{k}_rank{rank}.npz")))
                for k in range(STEPS)]
     local = len(batches[0]["is_3d"])
-    cases = {"plain": {}}
-    if world == 2:
-        cases["ghost"] = {"model.bn_group_size": str(local // 2)}
-    for case, extra in cases.items():
+    cases = {"plain": ({}, None)}
+    for case, (gs, rows) in GHOST_CASES[world].items():
+        cases[case] = ({"model.bn_group_size": str(gs)}, rows)
+    for case, (extra, rows) in cases.items():
         cfg = _port_cfg({**TINY, **extra})
         state = create_train_state(cfg, "cpu")
         state.load_state_dict(setup["state"])
         step = make_train_step(cfg, 0, occluder_bank=pack_occluder_bank_for(bank, "cpu"))
-        metrics = [{k: float(v) for k, v in step(state, batch_to_device(b, "cpu")).items()}
-                   for b in batches]
+        metrics = [{k: float(v) for k, v in step(state, batch_to_device(
+            {key: v[:rows] for key, v in b.items()}, "cpu")).items()} for b in batches]
         torch.save({"metrics": metrics, "model": state.model.state_dict(), "step": state.step},
                    os.path.join(outdir, f"{case}_rank{rank}.pt"))
-    # a ghost group of twice the local batch would take rows of two ranks
-    span = init_metro_model(_port_cfg({**TINY, "model.bn_group_size": str(2 * local)}).model,
-                            0, "cpu", train=True)
+    # a group size that does not divide the global batch raises, as in JAX
+    odd = init_metro_model(_port_cfg({**TINY, "model.bn_group_size": str(INDIVISIBLE_GS)}).model,
+                           0, "cpu", train=True)
     try:
-        span(torch.zeros(local, 64, 64, 3))
-        span_error = None
+        odd(torch.zeros(local, 64, 64, 3))
+        indivisible_error = None
     except ValueError as e:
-        span_error = str(e)
+        indivisible_error = str(e)
     try:
         local_batch_slice(4 * world + 1)
         guard = None
     except ValueError as e:
         guard = str(e)
-    return {"span_error": span_error, "guard_error": guard,
+    return {"indivisible_error": indivisible_error, "guard_error": guard,
             "slice": list(local_batch_slice(8 * world))}
 
 
@@ -379,15 +393,17 @@ def _produce_steps(world: int, outdir: str) -> None:
     init = train_state_from_flax(start)
     torch.save({"state": init}, os.path.join(outdir, "setup.pt"))
     ref = {"valid_counts": valid}
-    cases = {"plain": TINY}
-    if world == 2:
-        cases["ghost"] = {**TINY, "model.bn_group_size": str(8 // world)}
-    for case, over in cases.items():
+    cases = {"plain": (TINY, None)}
+    for case, (gs, rows) in GHOST_CASES[world].items():
+        cases[case] = ({**TINY, "model.bn_group_size": str(gs)}, rows)
+    for case, (over, rows) in cases.items():
         ccfg = apply_overrides(Config(), over)
         jstate = jax.tree_util.tree_map(jnp.array, start)
         jstep = jloop.make_train_step(ccfg, tx, occluder_bank=jnp.asarray(bank))
         jm = []
-        for b in glob:
+        for k in range(STEPS):
+            b = {key: np.concatenate([local[r][k][key][:rows] for r in range(world)])
+                 for key in local[0][k]}
             jstate, m = jstep(jstate, b)
             jm.append({k: float(v) for k, v in m.items()})
         want = state_dict_from_flax(jax.device_get({"params": jstate.params,
@@ -492,25 +508,40 @@ def test_second_initialization_is_a_no_op(steps):
     assert all(out["made"] and not out["again"] for out in steps["outs"])
 
 
+def _check_ghost_case(run: dict, case: str):
+    """The ranks' ghost-BN steps of `case` against the JAX package's on the
+    global batch, and every rank's state bit for bit rank 0's."""
+    lr = _port_cfg(TINY).train.base_lr
+    ranks = [torch.load(os.path.join(run["dir"], f"{case}_rank{r}.pt"), weights_only=True)
+             for r in range(run["world"])]
+    want = dict(np.load(os.path.join(run["dir"], f"jax_{case}.npz")))
+    _check_against_jax(ranks[0]["metrics"], ranks[0]["model"], run["ref"][f"jax_{case}"],
+                       want, lr)
+    for r in ranks[1:]:
+        assert r["metrics"] == ranks[0]["metrics"]
+        for k, v in ranks[0]["model"].items():
+            assert torch.equal(r["model"][k], v), k
+
+
 def test_ghost_bn_matches_jax(steps2):
     """Groups of 4 rows, half of each rank's 8, against the JAX package's
     ghost BN over the global batch of 16."""
-    lr = _port_cfg(TINY).train.base_lr
-    ranks = [torch.load(os.path.join(steps2["dir"], f"ghost_rank{r}.pt"), weights_only=True)
-             for r in range(2)]
-    want = dict(np.load(os.path.join(steps2["dir"], "jax_ghost.npz")))
-    _check_against_jax(ranks[0]["metrics"], ranks[0]["model"], steps2["ref"]["jax_ghost"],
-                       want, lr)
-    for k, v in ranks[0]["model"].items():
-        assert torch.equal(ranks[1]["model"][k], v), k
+    _check_ghost_case(steps2, "ghost")
 
 
-def test_ghost_group_spanning_ranks_raises(steps):
-    local = 16 // steps["world"]
+@pytest.mark.parametrize("world,case", ACROSS_RANKS, ids=ACROSS_IDS)
+def test_ghost_groups_across_ranks_match_jax(tmp_path_factory, world, case):
+    """Groups that take rows of several ranks: twice the local batch
+    ("span"), or a boundary inside a group ("straddle": 6 + 6 rows in
+    groups of 4 at 2 ranks, 3 a rank at 4), against JAX's ghost BN over
+    the same global batch."""
+    _check_ghost_case(_steps_run(tmp_path_factory, world), case)
+
+
+def test_ghost_group_size_not_dividing_the_global_batch_raises(steps):
     for out in steps["outs"]:
-        msg = out["span_error"]
-        assert msg is not None and "span ranks" in msg, msg
-        assert f"group of {2 * local} rows" in msg and f"local batch of {local}" in msg, msg
+        assert out["indivisible_error"] == (
+            f"batch 16 not divisible by bn group size {INDIVISIBLE_GS}"), out["indivisible_error"]
 
 
 def test_rank_batch_guard_raises(steps):
