@@ -20,6 +20,7 @@ from metro_pose3d_tpu_torch.ops.tta import (
     flip_crop, unflip_pose2d, unflip_pose3d, unflip_pose25d,
 )
 from metro_pose3d_tpu_torch.pipeline.device import device_augment
+from metro_pose3d_tpu_torch.utils.profiling import span
 
 TILE_KEYS = ("source", "warp_h", "warp_k", "warp_dist", "intrinsics")
 
@@ -130,10 +131,17 @@ class PoseEstimator:
 
     def predict_crops(self, crops_uint8, intrinsics) -> dict:
         """uint8 crops [B,S,S,3] + intrinsics [B,3,3] -> dict of tensors."""
-        return self._crops_fn(self.model, self._to_device(crops_uint8),
-                              self._to_device(intrinsics))
+        with span("serve.predict"):
+            with span("serve.to_device"):
+                crops, intr = self._to_device(crops_uint8), self._to_device(intrinsics)
+            with span("serve.forward"):
+                return self._crops_fn(self.model, crops, intr)
 
     def predict_tiles(self, batch: dict) -> dict:
         """Tile batch (`TILE_KEYS`: uint8 tiles + warp params + intrinsics)
         -> dict of tensors."""
-        return self._tiles_fn(self.model, {k: self._to_device(batch[k]) for k in TILE_KEYS})
+        with span("serve.predict"):
+            with span("serve.to_device"):
+                tiles = {k: self._to_device(batch[k]) for k in TILE_KEYS}
+            with span("serve.forward"):
+                return self._tiles_fn(self.model, tiles)

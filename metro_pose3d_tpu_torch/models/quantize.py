@@ -32,6 +32,7 @@ import torch
 
 from metro_pose3d_tpu_torch.models.resnet import BatchNorm, Conv
 from metro_pose3d_tpu_torch.ops.int8 import int8_conv, int8_elementwise
+from metro_pose3d_tpu_torch.utils.profiling import count, span
 
 
 class BNAffine(BatchNorm):
@@ -82,11 +83,15 @@ class QuantConv(Conv):
         return torch.clamp_min(self.amax, 1e-6) / 127.0
 
     def int8_weights(self):
-        """-> (wq OHWI int8 [Cout, k, k, Cin], swc float32 [Cout])."""
-        w = self.weight.float()
-        swc = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)) / 127.0, 1e-12)
-        wq = torch.clamp(torch.round(w / swc.view(-1, 1, 1, 1)), -127.0, 127.0)
-        return wq.to(torch.int8).permute(0, 2, 3, 1).contiguous(), swc
+        """-> (wq OHWI int8 [Cout, k, k, Cin], swc float32 [Cout]), made
+        anew at each call (span `int8.weights`, counter `int8.weight_bytes`)."""
+        with span("int8.weights"):
+            w = self.weight.float()
+            swc = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)) / 127.0, 1e-12)
+            wq = torch.clamp(torch.round(w / swc.view(-1, 1, 1, 1)), -127.0, 127.0)
+            wq = wq.to(torch.int8).permute(0, 2, 3, 1).contiguous()
+        count("int8.weight_bytes", wq.numel())
+        return wq, swc
 
     def quantize_input(self, x, pre_affine=None, pre_relu: bool = True) -> torch.Tensor:
         """The int8 input: x quantized by sa, or, with `pre_affine`, the

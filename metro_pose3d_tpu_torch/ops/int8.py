@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from metro_pose3d_tpu_torch.kernels import build
+from metro_pose3d_tpu_torch.utils.profiling import launch
 
 EPILOGUES = ("acc", "requant", "dequant")
 FORMS = ("quantize", "junction", "dequant")
@@ -291,6 +292,7 @@ def int8_conv_cuda(xq: torch.Tensor, wq: torch.Tensor, stride: int, dilation: in
     if out.numel():
         lib = build.load()
         tiling = [plan.get(key, 0) for key in ("bn", "bk", "stages", "tile_w")]
+        launch("metro_int8_conv")
         with torch.cuda.device(xq.device):
             err = lib.metro_int8_conv(
                 xq.data_ptr(), wq.data_ptr(), out.data_ptr(),
@@ -370,6 +372,7 @@ def int8_elementwise_cuda(form: str, x: torch.Tensor, scale: torch.Tensor,
     vec = allowed if width is None else width
     if x.numel():
         lib = build.load()
+        launch("metro_int8_elementwise")
         with torch.cuda.device(x.device):
             err = lib.metro_int8_elementwise(
                 x.data_ptr(), scale.contiguous().data_ptr(),

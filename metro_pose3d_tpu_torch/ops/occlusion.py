@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from metro_pose3d_tpu_torch.kernels import build
+from metro_pose3d_tpu_torch.utils.profiling import launch
 
 LAUNCHES = 0  # kernel launches by `occlude_with_bank` on CUDA tensors
 
@@ -111,6 +112,7 @@ def occlude_cuda(crops, bank_u8, tile_indices, placements, enabled):
     on = enabled.float().contiguous()
     out = torch.empty_like(src)
     lib = build.load()
+    launch("metro_occluder_paste")
     with torch.cuda.device(crops.device):
         err = lib.metro_occluder_paste(
             src.data_ptr(), bank.data_ptr(), idx.data_ptr(), aff.data_ptr(), on.data_ptr(),

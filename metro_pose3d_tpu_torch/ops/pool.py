@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from metro_pose3d_tpu_torch.kernels import build
+from metro_pose3d_tpu_torch.utils.profiling import launch
 
 MODES = ("same", "torch", "keras")
 WAYS = ("fwd", "bwd")
@@ -158,6 +159,7 @@ def max_pool_cuda(x: torch.Tensor, mode: str = "same", width: int | None = None)
                     memory_format=torch.channels_last)
     vec = _width(c, x.dtype, (x.data_ptr(), y.data_ptr()), width)
     lib = build.load()
+    launch("metro_maxpool3x3s2")
     with torch.cuda.device(x.device):
         err = lib.metro_maxpool3x3s2(
             x.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], vec, b, h, w, c, oh, ow, top, left,
@@ -222,6 +224,7 @@ def max_pool_bwd_cuda(x: torch.Tensor, g: torch.Tensor, mode: str = "same",
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     vec = _width(c, x.dtype, (x.data_ptr(), g.data_ptr(), dx.data_ptr()), width)
     lib = build.load()
+    launch("metro_maxpool3x3s2_bwd")
     with torch.cuda.device(x.device):
         err = lib.metro_maxpool3x3s2_bwd(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), _DTYPES[x.dtype], vec, b, h, w, c, oh, ow,

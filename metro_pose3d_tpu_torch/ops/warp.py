@@ -32,6 +32,7 @@ import torch
 from metro_pose3d_tpu_torch import reference_constants as C
 from metro_pose3d_tpu_torch.kernels import build
 from metro_pose3d_tpu_torch.ops.color import normalize
+from metro_pose3d_tpu_torch.utils.profiling import launch
 
 EPILOGUES = ("none", "unit", "normalize", "normalize_div")
 # (epilogue, output dtype) -> kernel launches on CUDA tensors. `LAUNCHES`
@@ -199,6 +200,7 @@ def warp_images_cuda(sources, h_mats, k_vecs, dists, out_side: int,
         idx = source_indices.to(torch.int32).contiguous()
     out = torch.empty((b, out_side, out_side, 3), dtype=out_dtype, device=dev)
     lib = build.load()
+    launch("metro_warp_crop")
     with torch.cuda.device(dev):
         err = lib.metro_warp_crop(
             src.data_ptr(), params.data_ptr(), idx.data_ptr(), out.data_ptr(),

@@ -24,6 +24,7 @@ from metro_pose3d_tpu_torch.config import Config
 from metro_pose3d_tpu_torch.models.losses import compute_losses
 from metro_pose3d_tpu_torch.parallel import mesh
 from metro_pose3d_tpu_torch.pipeline.device import device_augment
+from metro_pose3d_tpu_torch.utils.profiling import span
 
 
 def make_lr_schedule(cfg: Config):
@@ -99,6 +100,10 @@ def make_train_step(cfg: Config, root_index: int = 0, occluder_bank=None,
     checked = False
 
     def step(state, batch: dict) -> dict:
+        with span("train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch: dict) -> dict:
         nonlocal checked
         model, opt = state.model, state.optimizer
         parallel = mesh.in_group()
@@ -106,23 +111,26 @@ def make_train_step(cfg: Config, root_index: int = 0, occluder_bank=None,
             mesh.check_replicas(state.step, model)
             checked = True
         model.train()
-        with torch.no_grad():
+        with span("train.augment"), torch.no_grad():
             crops = device_augment(batch, proc_side, train=True, occluder_bank=occluder_bank,
                                    background_bank=background_bank)
-        opt.zero_grad(set_to_none=True)
-        logits3d, logits2d = model(crops)
-        total, parts = compute_losses(logits3d, logits2d, batch, cfg, root_index)
-        total.backward()
-        if parallel:
-            grads = mesh.average_gradients_(model.parameters())
-        else:
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-        norm = torch.nn.utils.get_total_norm(grads)  # optax.global_norm
-        if clip > 0:
-            clip_by_global_norm_(grads, clip, norm)
-        for group in opt.param_groups:
-            group["lr"] = sched(state.step)
-        opt.step()
+        with span("train.forward"):
+            opt.zero_grad(set_to_none=True)
+            logits3d, logits2d = model(crops)
+            total, parts = compute_losses(logits3d, logits2d, batch, cfg, root_index)
+        with span("train.backward"):
+            total.backward()
+        with span("train.optimizer"):
+            if parallel:
+                grads = mesh.average_gradients_(model.parameters())
+            else:
+                grads = [p.grad for p in model.parameters() if p.grad is not None]
+            norm = torch.nn.utils.get_total_norm(grads)  # optax.global_norm
+            if clip > 0:
+                clip_by_global_norm_(grads, clip, norm)
+            for group in opt.param_groups:
+                group["lr"] = sched(state.step)
+            opt.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in parts.items()}
         metrics["grad_norm"] = norm.detach()

@@ -815,6 +815,41 @@ def test_aot_compile_replays_the_eager_predict(cuda, quantize):
         compiled(model, crops[:2], intr[:2])
 
 
+def test_a_traced_session_anchors_its_spans_on_two_marker_kernels(cuda):
+    """`utils/profiling.py`: a session's first record and the profiler's stop
+    each drain the card and launch one marker kernel; through them, the pool
+    kernel starts after its launch stamp, which its span encloses."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from metro_pose3d_tpu_torch.utils import profiling
+
+    x = torch.randn(4, 64, 128, 128, device=cuda).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    pool.stem_max_pool(x)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.span("outer"):
+            pool.stem_max_pool(x)
+        time.sleep(0.2)  # the markers' launch latencies, over 0.2 s, fix the rate to 1e-3
+    rec = profiling.recorded()
+    device = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    marks = [s for s, n in device if rec["marker"] in n]
+    runs = [s for s, n in device if "maxpool3x3s2_kernel" in n]
+    assert len(marks) == 2 and len(runs) == 1, (marks, runs, rec["anchors"])
+    first, last = rec["anchors"]
+    assert first["before_ns"] <= first["after_ns"] <= last["before_ns"] <= last["after_ns"]
+    rate = (marks[1] - marks[0]) / ((last["after_ns"] - first["after_ns"]) / 1e3)
+    assert abs(rate - 1) < 1e-2, (rate, marks, rec["anchors"])
+    (launch,) = rec["launches"]
+    stamp_us = (launch["t_ns"] - first["after_ns"]) / 1e3 * rate + marks[0]
+    assert launch["kernel"] == "metro_maxpool3x3s2" and runs[0] >= stamp_us, (runs, stamp_us)
+    (outer,) = rec["spans"]
+    assert outer["start_ns"] <= launch["t_ns"] <= outer["end_ns"]
+
+
 # --- nvJPEG: the JPEG decode of a machine without libjpeg ---------------------------
 
 REAL_JPEG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "real_files",
