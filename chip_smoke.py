@@ -234,6 +234,19 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              predicts whose file names the stem pool's kernel (a trace that
              misses it is taken again, eight at most)
 
+ 24 bn       eval batch norm and its ReLU in one kernel (`ops/bn.py`): bit for
+             bit its twin at the 49 batch norms of a Config() forward of 128
+             rows (bf16, channels_last, with and without the ReLU, in both
+             variants) and on NaN, +-inf and -0.0 in float32 and bf16,
+             channels_last and NCHW; 49 launches a bf16 crop-in and tile-in
+             forward and 17 an int8 one (TTA, B=64), all vec16 with the ReLU,
+             whose outputs equal the same forward's with the twin's chain;
+             then (informative) its device time over a crop-in forward's 49
+             launches beside the bytes bound, the kernel and the twin alone at
+             the same shapes, and the crop-in forward with each. Phases 10,
+             17, 19, 20 and 23 count its launches on their paths too: none in
+             a train step, 49 a bf16 forward and 17 an int8 one elsewhere.
+
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
 record holds its launches on the path that runs it, its time, its plain
@@ -1461,7 +1474,7 @@ def phase_int8(rng, gen, dev, card, rates):
     from metro_pose3d_tpu_torch.init import init_metro_model
     from metro_pose3d_tpu_torch.models.metro import MetroModel
     from metro_pose3d_tpu_torch.models.quantize import QuantConv, calibrate
-    from metro_pose3d_tpu_torch.ops import int8, pool, warp
+    from metro_pose3d_tpu_torch.ops import bn, int8, pool, warp
     from metro_pose3d_tpu_torch.ops.color import normalize
     from metro_pose3d_tpu_torch.probes import time_ms
 
@@ -1557,16 +1570,23 @@ def phase_int8(rng, gen, dev, card, rates):
     int8.reset_launches()
     pool.reset_launches()
     warp.reset_launches()
+    bn.reset_launches()
     torch._int_mm = counting_int_mm
     try:
         outs = [est.predict_crops(c, i) for c, i in crop_reqs]
+        bn_crop = bn.LAUNCHES
         outs += [est.predict_tiles(b) for b in tile_reqs]
         torch.cuda.synchronize()
     finally:
         torch._int_mm = int_mm
     path = {"qk1": int8.launches("int8_conv"), "qk2": int8.launches("int8_elementwise"),
             "pool": pool.MODE_LAUNCHES["same"], "warp": warp.LAUNCHES,
-            "int_mm": len(int_mm_calls)}
+            "int_mm": len(int_mm_calls), "bn": bn.LAUNCHES}
+    bn_forward = {"int8_crop": bn_crop / len(crop_reqs),
+                  "int8_tile": (bn.LAUNCHES - bn_crop) / len(tile_reqs)}
+    if set(bn_forward.values()) != {17} or bn.launches(relu=False):
+        fail(f"int8 serving launched the batch norm kernel {bn_forward} times a forward, want "
+             f"17 (bn_pre, bn_final), all with the ReLU: {bn.KERNEL_LAUNCHES}")
     path_warp_forms = dict(warp.KERNEL_LAUNCHES)
     by_kind = {f"{k[0][5:]}:{k[1]}:{k[2]}": n for k, n in int8.KERNEL_LAUNCHES.items() if n}
     for out in outs:
@@ -1772,7 +1792,8 @@ def phase_int8(rng, gen, dev, card, rates):
          "timed": "one launch of each form at stage 1 of the path (B=128), summed",
          "per_form": per_form},
     ]
-    return records, {"pool": path["pool"], "warp": path["warp"], "warp_forms": path_warp_forms}
+    return records, {"pool": path["pool"], "warp": path["warp"], "warp_forms": path_warp_forms,
+                     "bn": path["bn"], "bn_forward": bn_forward}
 
 
 # --- phase 18: the host feed and train() from datasets -----------------------
@@ -2268,7 +2289,7 @@ def phase_dataset(dev, card) -> dict:
     from metro_pose3d_tpu_torch.init import init_metro_model
     from metro_pose3d_tpu_torch.models.metro import MetroModel
     from metro_pose3d_tpu_torch.models.quantize import calibrate_on_dataset
-    from metro_pose3d_tpu_torch.ops import int8, pool, warp
+    from metro_pose3d_tpu_torch.ops import bn, int8, pool, warp
     from metro_pose3d_tpu_torch.utils import improc
 
     t_phase = time.perf_counter()
@@ -2303,11 +2324,13 @@ def phase_dataset(dev, card) -> dict:
             pool.reset_launches()
             warp.reset_launches()
             int8.reset_launches()
+            bn.reset_launches()
 
         def counts():
             return {"pool": pool.MODE_LAUNCHES["same"], "warp": warp.LAUNCHES,
                     "warp_forms": dict(warp.KERNEL_LAUNCHES),
-                    "qk1": int8.launches("int8_conv"), "qk2": int8.launches("int8_elementwise")}
+                    "qk1": int8.launches("int8_conv"), "qk2": int8.launches("int8_elementwise"),
+                    "bn": bn.LAUNCHES}
 
         def run(c, m, what, **kw):
             reset()
@@ -2326,7 +2349,8 @@ def phase_dataset(dev, card) -> dict:
             if not np.isfinite(result[key]).all():
                 fail(f"predict_dataset: {key} is not finite")
         if fp_launches["warp_forms"].get(("normalize", torch.bfloat16), 0) != n_batches \
-                or fp_launches["warp"] != n_batches or fp_launches["pool"] != n_batches:
+                or fp_launches["warp"] != n_batches or fp_launches["pool"] != n_batches \
+                or fp_launches["bn"] != 49 * n_batches:
             fail(f"predict_dataset over {n_batches} batches: launches {fp_launches}")
         check_pool_variants("predict_dataset")
         scores = eval_h36m.evaluate(path)
@@ -2388,7 +2412,8 @@ def phase_dataset(dev, card) -> dict:
         torch.cuda.synchronize()
         calib_s = time.perf_counter() - t0
         calib_launches = counts()
-        if (calib_launches["warp"], calib_launches["pool"]) != (2, 2):
+        # calibration runs every batch norm as one (no fused bottleneck)
+        if (calib_launches["warp"], calib_launches["pool"], calib_launches["bn"]) != (2, 2, 98):
             fail(f"calibrate_on_dataset over 2 batches: launches {calib_launches}")
         result8, path8, stats8, int8_launches = run(cfg8, model8, "int8")
         scores8 = eval_h36m.evaluate(path8)
@@ -2397,7 +2422,7 @@ def phase_dataset(dev, card) -> dict:
             fail(f"int8 MPJPE {scores8['mpjpe']} against fp {scores['mpjpe']}: |delta| "
                  f">= {INT8_MPJPE_REL} fp")
         want8 = {"qk1": 52 * n_batches, "qk2": 20 * n_batches, "warp": n_batches,
-                 "pool": n_batches}
+                 "pool": n_batches, "bn": 17 * n_batches}
         if any(int8_launches[k] != n for k, n in want8.items()) or len(result8["valid"]) != n_test:
             fail(f"int8 predict_dataset: launches {int8_launches}, want {want8}; "
                  f"{len(result8['valid'])} rows")
@@ -2407,7 +2432,8 @@ def phase_dataset(dev, card) -> dict:
               f"{scores['mpjpe']:.4f} (delta {delta:+.4f} mm, bound {INT8_MPJPE_REL} fp), "
               f"{reading(stats8)} (frames cached); launches QK1 {int8_launches['qk1']}, "
               f"QK2 {int8_launches['qk2']}, K1 {int8_launches['warp']}, K3 "
-              f"{int8_launches['pool']}  [{card}]")
+              f"{int8_launches['pool']}, batch norm {int8_launches['bn']} (fp "
+              f"{fp_launches['bn']}, calibration {calib_launches['bn']})  [{card}]")
 
         # the calibrated int8 model through predict_dataset in float32: on the
         # card (QK1, QK2) against the CPU (their plain twins), first test
@@ -2452,8 +2478,9 @@ def phase_dataset(dev, card) -> dict:
     for leg in legs:
         for form, n in leg["warp_forms"].items():
             forms[form] = forms.get(form, 0) + n
-    return {**{k: sum(leg[k] for leg in legs) for k in ("pool", "warp", "qk1", "qk2")},
-            "warp_forms": forms}
+    return {**{k: sum(leg[k] for leg in legs) for k in ("pool", "warp", "qk1", "qk2", "bn")},
+            "warp_forms": forms, "bn_forward": {"dataset_fp": fp_launches["bn"] / n_batches,
+                                                "dataset_int8": int8_launches["bn"] / n_batches}}
 
 
 # --- phase 20: the multi-person frame path and the command line ----------------
@@ -2518,7 +2545,7 @@ def phase_multiperson(rng, dev, card) -> dict:
     from metro_pose3d_tpu_torch.models.metro import MetroModel
     from metro_pose3d_tpu_torch.models.quantize import calibrate
     from metro_pose3d_tpu_torch.multiperson import MultiPersonEstimator
-    from metro_pose3d_tpu_torch.ops import int8, occlusion, pool, warp
+    from metro_pose3d_tpu_torch.ops import bn, int8, occlusion, pool, warp
     from metro_pose3d_tpu_torch.ops.color import normalize
     from metro_pose3d_tpu_torch.train.checkpoint import Checkpointer
     from metro_pose3d_tpu_torch.train.state import create_train_state
@@ -2531,13 +2558,14 @@ def phase_multiperson(rng, dev, card) -> dict:
         pool.reset_launches()
         warp.reset_launches()
         int8.reset_launches()
+        bn.reset_launches()
         occlusion.LAUNCHES = 0
 
     def counts(keep=True):
         c = {"pool": pool.MODE_LAUNCHES["same"], "pool_bwd": pool.MODE_BWD_LAUNCHES["same"],
              "warp": warp.LAUNCHES, "warp_forms": dict(warp.KERNEL_LAUNCHES),
              "occluder": occlusion.LAUNCHES, "qk1": int8.launches("int8_conv"),
-             "qk2": int8.launches("int8_elementwise")}
+             "qk2": int8.launches("int8_elementwise"), "bn": bn.LAUNCHES}
         if keep:
             legs.append(c)
         return c
@@ -2608,10 +2636,12 @@ def phase_multiperson(rng, dev, card) -> dict:
             outs.setdefault(what, o)
             fps[what].append(rate)
             forms = {f: n for f, n in c["warp_forms"].items() if n}
-            if forms != {frame_form: MP_FRAMES} or c["pool"] != MP_FRAMES:
-                fail(f"multi-person {what}: K1 launches by form {forms}, K3 {c['pool']}; want "
-                     f"{MP_FRAMES} of {frame_form} and {MP_FRAMES} of K3 (one a frame at "
-                     f"bucket {MP_BUCKET})")
+            if forms != {frame_form: MP_FRAMES} or c["pool"] != MP_FRAMES \
+                    or c["bn"] != 49 * MP_FRAMES:
+                fail(f"multi-person {what}: K1 launches by form {forms}, K3 {c['pool']}, batch "
+                     f"norm {c['bn']}; want {MP_FRAMES} of {frame_form}, {MP_FRAMES} of K3 (one "
+                     f"a frame at bucket {MP_BUCKET}) and 49 batch norms a frame")
+            bn_frame = c["bn"] / MP_FRAMES
     stream, loop = outs.values()
     check_pool_variants("multi-person serving")
     worst, same = {}, True
@@ -2646,8 +2676,8 @@ def phase_multiperson(rng, dev, card) -> dict:
           f"loop {med['estimate_frame loop']:.2f} frames/s; the stream over the loop by pass: "
           f"{gain}x; outputs "
           + ("equal bit for bit" if same else f"differ by {worst}")
-          + f"; launches a pass: K1 {frame_form[0]} bf16 {c['warp']}, K3 {c['pool']} "
-          f"(bucket {MP_BUCKET}, {2 * MP_BUCKET} crops with TTA)")
+          + f"; launches a pass: K1 {frame_form[0]} bf16 {c['warp']}, K3 {c['pool']}, batch "
+          f"norm {c['bn']} (bucket {MP_BUCKET}, {2 * MP_BUCKET} crops with TTA)")
 
     # float32 on the card (TF32 off) against the CPU, one frame of 3 people;
     # then frame mode against tile mode with tiles that cover the ROI
@@ -2701,13 +2731,14 @@ def phase_multiperson(rng, dev, card) -> dict:
     out8, fps8, c8 = serve("int8 estimate_stream(depth=2)",
                            lambda e: list(e.estimate_stream(iter(requests[:n8]), depth=2)),
                            e=est8, n=n8)
-    if (c8["qk1"], c8["qk2"], c8["warp_forms"][frame_form], c8["pool"]) != (
-            52 * n8, 20 * n8, n8, n8):
+    if (c8["qk1"], c8["qk2"], c8["warp_forms"][frame_form], c8["pool"], c8["bn"]) != (
+            52 * n8, 20 * n8, n8, n8, 17 * n8):
         fail(f"int8 multi-person over {n8} frames: launches {c8}")
     apart = {k: float(np.mean([np.abs(a[k] - b[k]).mean() for a, b in zip(out8, loop)]))
              for k in out8[0]}
-    print(f"[20 multi] int8 over {n8} frames: launches QK1 {c8['qk1']}, QK2 {c8['qk2']} "
-          f"(52 and 20 a forward), K1 {c8['warp']}, K3 {c8['pool']}; mean abs diff from bf16 "
+    print(f"[20 multi] int8 over {n8} frames: launches QK1 {c8['qk1']}, QK2 {c8['qk2']}, batch "
+          f"norm {c8['bn']} (52, 20 and 17 a forward), K1 {c8['warp']}, K3 {c8['pool']}; mean "
+          f"abs diff from bf16 "
           + ", ".join(f"{k} {v:.2f}" for k, v in apart.items()))
     del model8, est8
 
@@ -2795,8 +2826,10 @@ def phase_multiperson(rng, dev, card) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[20 multi] phase time {time.perf_counter() - t_phase:.1f} s")
     total = {k: sum(leg[k] for leg in legs) for k in ("pool", "pool_bwd", "warp", "occluder",
-                                                       "qk1", "qk2")}
+                                                       "qk1", "qk2", "bn")}
     total["warp_forms"] = {f: sum(leg["warp_forms"][f] for leg in legs) for f in warp.FORMS}
+    total["bn_forward"] = {"multiperson_bf16": bn_frame,
+                           "multiperson_int8": c8["bn"] / n8}
     return total
 
 
@@ -3538,8 +3571,8 @@ AOT_SIDE = 256
 AOT_TIMED = 20  # calls timed, eager and replayed
 AOT_COUNTED = 3  # replays whose launches are counted
 # kernel launches of one replay of the crop-in TTA predict (one forward)
-AOT_PER_REPLAY = {"bf16": {"pool": 1, "qk1": 0, "qk2": 0},
-                  "int8": {"pool": 1, "qk1": 52, "qk2": 20}}
+AOT_PER_REPLAY = {"bf16": {"pool": 1, "qk1": 0, "qk2": 0, "bn": 49},
+                  "int8": {"pool": 1, "qk1": 52, "qk2": 20, "bn": 17}}
 DEMO_VIDEO_FRAMES = 8
 DEMO_FRAME = (512, 910)  # make_multiperson_frame's and make_multiperson_sequence's
 PROFILE_CALLS = 20
@@ -3547,17 +3580,18 @@ PROFILE_CALLS = 20
 
 def path_counts() -> dict:
     """The wrappers' launch counts: K3 forward (`same`), QK1, QK2, K1 and its
-    forms."""
-    from metro_pose3d_tpu_torch.ops import int8, pool, warp
+    forms, the batch norm kernel."""
+    from metro_pose3d_tpu_torch.ops import bn, int8, pool, warp
 
     return {"pool": pool.MODE_LAUNCHES["same"], "qk1": int8.launches("int8_conv"),
             "qk2": int8.launches("int8_elementwise"), "warp": warp.LAUNCHES,
-            "warp_forms": dict(warp.KERNEL_LAUNCHES)}
+            "warp_forms": dict(warp.KERNEL_LAUNCHES), "bn": bn.LAUNCHES}
 
 
 def reset_path_counts() -> None:
-    from metro_pose3d_tpu_torch.ops import int8, pool, warp
+    from metro_pose3d_tpu_torch.ops import bn, int8, pool, warp
 
+    bn.reset_launches()
     pool.reset_launches()
     warp.reset_launches()
     int8.reset_launches()
@@ -3649,7 +3683,8 @@ def aot_leg(name: str, bundle: str, rng, dev, card) -> dict:
           f"included), {AOT_BATCH * 1000 / replay_ms:.1f} crops/s; replay vs eager: {same1}, "
           f"fresh inputs {same2}; an earlier answer kept its bits; batch {AOT_BATCH // 2} "
           f"refused ({refusal}); a replay launches K3 {AOT_PER_REPLAY[name]['pool']}, QK1 "
-          f"{AOT_PER_REPLAY[name]['qk1']}, QK2 {AOT_PER_REPLAY[name]['qk2']}  [{card}]")
+          f"{AOT_PER_REPLAY[name]['qk1']}, QK2 {AOT_PER_REPLAY[name]['qk2']}, batch norm "
+          f"{AOT_PER_REPLAY[name]['bn']}  [{card}]")
     bad = None
     if name == "bf16":  # a capture that fails raises, and nothing falls back to eager
 
@@ -3693,7 +3728,7 @@ def phase_finish(rng, dev, card) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_finish_")
-    total = {"pool": 0, "qk1": 0, "qk2": 0, "warp_forms": dict.fromkeys(
+    total = {"pool": 0, "qk1": 0, "qk2": 0, "bn": 0, "warp_forms": dict.fromkeys(
         [("normalize_div", torch.bfloat16)], 0)}
     per_replay = {}
     try:
@@ -3714,7 +3749,7 @@ def phase_finish(rng, dev, card) -> dict:
             legs[name] = aot_leg(name, os.path.join(tmp, name), rng, dev, card)
             torch.cuda.empty_cache()
             per_replay[name] = legs[name]["per_replay"]
-            for k in ("pool", "qk1", "qk2"):
+            for k in ("pool", "qk1", "qk2", "bn"):
                 total[k] += legs[name]["counts"][k]
 
         # (c) the demo on the card: a PNG of the synthetic frame, and --video
@@ -3735,21 +3770,23 @@ def phase_finish(rng, dev, card) -> dict:
                 or frames.shape != (DEMO_VIDEO_FRAMES, h, w, 3) or frames.dtype != np.uint8):
             fail(f"[23 demo] rcs {rcs}, PNG {img.shape}, frames {frames.shape} {frames.dtype}; "
                  f"printed {printed.getvalue()[-500:]}")
-        if (div, counts["pool"]) != (n_frames, n_frames):
-            fail(f"[23 demo] {n_frames} frames launched K1 normalize_div bf16 {div} and K3 "
-                 f"{counts['pool']} times (want one of each a frame): {counts}")
+        if (div, counts["pool"], counts["bn"]) != (n_frames, n_frames, 49 * n_frames):
+            fail(f"[23 demo] {n_frames} frames launched K1 normalize_div bf16 {div}, K3 "
+                 f"{counts['pool']} and batch norm {counts['bn']} times (want one K1 and K3 and "
+                 f"49 batch norms a frame): {counts}")
         loaded = sorted(m for m in ("cv2", "matplotlib") if m in sys.modules)
         if loaded:
             fail(f"[23 demo] the demo imported {loaded}")
         changed = (frames != np.stack([f for f, *_ in make_multiperson_sequence(
             3, DEMO_VIDEO_FRAMES, seed=0)])).any(-1)
         total["pool"] += counts["pool"]
+        total["bn"] += counts["bn"]
         total["warp_forms"][("normalize_div", torch.bfloat16)] += div
         print(f"[23 demo] demo.main on the card (Config() R50@256 bf16, seeded weights): "
               f"{png} {img.shape[1]}x{img.shape[0]} PNG read back by the port, and --video "
               f"{DEMO_VIDEO_FRAMES}: {frames.shape} overlays, {changed.mean():.4%} of their "
-              f"pixels drawn, in {demo_s:.1f} s; K1 normalize_div bf16 and K3 once a frame; "
-              f"neither cv2 nor matplotlib imported")
+              f"pixels drawn, in {demo_s:.1f} s; K1 normalize_div bf16 and K3 once a frame, "
+              f"batch norm 49 times; neither cv2 nor matplotlib imported")
 
         # (d) profiling: StepTimer and sync around eager predicts, the
         # memory statistics, a trace
@@ -3791,6 +3828,7 @@ def phase_finish(rng, dev, card) -> dict:
             fail(f"[23 profiling] eight traces named no stem pool kernel; the last named "
                  f"{len(kernels)} kernels: {sorted(kernels)[:10]}")
         total["pool"] += path_counts()["pool"]
+        total["bn"] += path_counts()["bn"]
         print(f"[23 profiling] StepTimer over {PROFILE_CALLS} eager predicts (Config() bf16, "
               f"crop-in TTA B={AOT_BATCH}), each synced: {summary}; device_memory_stats cuda:0 "
               f"in use {m0['bytes_in_use'] / 2**30:.2f} GiB, peak "
@@ -3805,6 +3843,184 @@ def phase_finish(rng, dev, card) -> dict:
     total["per_replay"] = per_replay
     total["legs"] = legs
     return total
+
+
+# --- phase 24: eval batch norm and its ReLU in one pass --------------------------
+
+BN_BATCH = 64  # crop-in and tile-in with flip TTA: 128 rows a forward
+BN_PATH = {"bf16": 49, "int8": 17}  # batch norm launches a forward
+BN_TIMED = 5  # forwards profiled for the kernel's device time on the path
+
+
+def bn_path_shapes(dev) -> list:
+    """[(C, H, W, relu)] of the batch norms of a Config() forward (R50 v2 @
+    256), in order, from a forward of one crop."""
+    from metro_pose3d_tpu_torch.config import Config
+    from metro_pose3d_tpu_torch.init import init_metro_model
+    from metro_pose3d_tpu_torch.models.resnet import BatchNorm
+
+    model = init_metro_model(Config().model, SEED, dev).eval()
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_pre_hook(
+                lambda _, args, kw: shapes.append((*args[0].shape[1:], kw.get("relu", False))),
+                with_kwargs=True)
+    with torch.no_grad():
+        model(torch.zeros(1, 256, 256, 3, device=dev))
+    return shapes
+
+
+def bn_special(gen, dev, shape, dtype, memory_format):
+    """A batch norm case with NaN, +-inf and -0.0 in x, and channel 0 taking
+    -0.0 to -0.0: (x, mean, mul, bias)."""
+    x = torch.randn(shape, generator=gen, device=dev) * 3
+    flat = x.view(-1)
+    for value in (float("nan"), float("inf"), float("-inf"), -0.0):
+        flat[torch.randint(0, flat.numel(), (flat.numel() // 50,), generator=gen,
+                           device=dev)] = value
+    x = x.to(dtype).contiguous(memory_format=memory_format)
+    c = shape[1]
+    mean, scale, bias = (torch.randn(c, generator=gen, device=dev) for _ in range(3))
+    var = torch.rand(c, generator=gen, device=dev) + 0.05
+    mean[0], scale[0], bias[0] = 0.0, 1.0, -0.0
+    return x, mean, torch.rsqrt(var + 1e-3) * scale, bias
+
+
+def phase_bn(rng, gen, dev, card) -> dict:
+    """24: the batch norm kernel bit for bit its twin at the 49 shapes of the
+    bf16 forward (128 rows), in both variants, with and without the ReLU,
+    and on NaN, +-inf and -0.0 in float32 and bf16, channels_last and NCHW;
+    its launches on the crop-in and tile-in bf16 paths and on int8 crop-in,
+    each forward's outputs equal to the same forward with the twin's chain;
+    its device time over a crop-in forward's 49 launches (the profiler)
+    beside the bytes bound, the kernel and the twin at the same 49 shapes
+    alone (CUDA events), and the forward's time with the kernel and with
+    the twin. -> its record."""
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+    from metro_pose3d_tpu_torch.evaluation.engine import PoseEstimator
+    from metro_pose3d_tpu_torch.geom.joints import H36M_17
+    from metro_pose3d_tpu_torch.init import init_metro_model
+    from metro_pose3d_tpu_torch.kernels import build
+    from metro_pose3d_tpu_torch.models.quantize import calibrate
+    from metro_pose3d_tpu_torch.ops import bn
+    from metro_pose3d_tpu_torch.probes import time_ms
+
+    t_phase = time.perf_counter()
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    usage, _ = kernel_resources(cuobjdump, build.build(), ("bn_act_nhwc_kernel",
+                                                           "bn_act_flat_kernel"))
+    print(f"[24 bn] cuobjdump: channels_last vec16 instances {usage.get('bn_act_nhwc_kernel')}, "
+          f"flat instances {usage.get('bn_act_flat_kernel')}")
+    shapes = bn_path_shapes(dev)
+    if len(shapes) != BN_PATH["bf16"] or not all(relu for *_, relu in shapes):
+        fail(f"[24 bn] a Config() forward ran {len(shapes)} batch norms: {shapes}")
+
+    # (a) bit for bit at the path's shapes, and its time alone there
+    rows = 2 * BN_BATCH
+    bn.reset_launches()
+    alone_ms = plain_ms = bound_ms = 0.0
+    for c, h, w, _ in shapes:
+        x = (torch.randn((rows, c, h, w), generator=gen, device=dev) * 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        mean, scale, bias = (torch.randn(c, generator=gen, device=dev) for _ in range(3))
+        mul = torch.rsqrt(torch.rand(c, generator=gen, device=dev) + 0.05 + 1e-3) * scale
+        for relu in (True, False):
+            want = bn.bn_act_plain(x, mean, mul, bias, relu)
+            for width in (None, 1):
+                if not same_bits(bn.bn_act_cuda(x, mean, mul, bias, relu, width), want):
+                    fail(f"[24 bn] [{rows},{c},{h},{w}] bf16 relu {relu} width {width}: the "
+                         f"kernel differs from its twin")
+        alone_ms += time_ms(lambda: bn.bn_act_cuda(x, mean, mul, bias, True))
+        plain_ms += time_ms(lambda: bn.bn_act_plain(x, mean, mul, bias, True))
+        bound_ms += bound(2 * nbytes(x), 5 * x.numel())[0]
+        del x, want
+    # a shape: 2 checks in each variant, then 3 + 20 timed calls in vec16
+    if (bn.launches(var="scalar"), bn.launches(var="vec16")) != (2 * len(shapes),
+                                                                 25 * len(shapes)):
+        fail(f"[24 bn] variants launched {bn.KERNEL_LAUNCHES}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for fmt in (torch.channels_last, torch.contiguous_format):
+            for shape in ((8, 256, 64, 64), (3, 24, 7, 9)):
+                x, mean, mul, bias = bn_special(gen, dev, shape, dtype, fmt)
+                for relu in (True, False):
+                    want = bn.bn_act_plain(x, mean, mul, bias, relu)
+                    for width in (None, 1):
+                        got = bn.bn_act_cuda(x, mean, mul, bias, relu, width)
+                        if got.stride() != want.stride() or not same_bits(got, want):
+                            fail(f"[24 bn] {shape} {dtype} {fmt} relu {relu} width {width}: "
+                                 f"the kernel differs from its twin on NaN, inf and -0.0")
+    print(f"[24 bn] kernel == twin bit for bit at the {len(shapes)} batch norms of a Config() "
+          f"forward of {rows} rows (bf16, channels_last, with and without the ReLU, vec16 and "
+          f"scalar) and on NaN, +-inf, -0.0 in float32 and bf16, channels_last and NCHW; alone "
+          f"at those shapes: kernel {alone_ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes), share {bound_ms / alone_ms:.1%}  [{card}]")
+
+    # (b) the paths: launches, outputs against the twin's chain, times
+    kernel_fn = bn.bn_act_cuda
+
+    def plain_cuda(x, mean, mul, bias, relu=False, width=None):
+        return bn.bn_act_plain(x, mean, mul, bias, relu)
+
+    crops = rng.randint(0, 256, (BN_BATCH, 256, 256, 3)).astype(np.uint8)
+    intr = crop_params(rng, BN_BATCH, TILE, 256, "normal")[3]
+    tiles = tile_batch(rng, BN_BATCH, TILE, 256)
+    per_path, times = {}, {}
+    for name in ("bf16", "int8"):
+        cfg = apply_overrides(Config(), {"model.quantize": "int8"} if name == "int8" else {})
+        model = init_metro_model(cfg.model, SEED, dev)
+        if name == "int8":
+            calibrate(model, [torch.from_numpy(rng.uniform(-1, 1, (16, 256, 256, 3)).astype(
+                np.float32)).to(dev) for _ in range(2)])
+        est = PoseEstimator(cfg, model, H36M_17, flip_tta=True, reconstruct=True)
+        bn.reset_launches()
+        got = {"crops": est.predict_crops(crops, intr)}
+        per_path[f"{name}_crop"] = bn.LAUNCHES
+        if name == "bf16":
+            got["tiles"] = est.predict_tiles(tiles)
+            per_path["bf16_tile"] = bn.LAUNCHES - per_path["bf16_crop"]
+        torch.cuda.synchronize()
+        counted = {k: n for k, n in per_path.items() if k.startswith(name)}
+        if set(counted.values()) != {BN_PATH[name]} or bn.launches(relu=False) or \
+                bn.launches(var="scalar"):
+            fail(f"[24 bn] {name}: launches a forward {counted}, want {BN_PATH[name]}, all "
+                 f"with the ReLU in the vec16 variant: {bn.KERNEL_LAUNCHES}")
+        c_dev, i_dev = torch.from_numpy(crops).to(dev), torch.from_numpy(intr).to(dev)
+        fn = est._crops_fn
+        times[name] = {"forward_ms": time_ms(lambda: fn(model, c_dev, i_dev), iters=10)}
+        if name == "bf16":
+            times[name]["ms"] = device_ms(lambda: fn(model, c_dev, i_dev),
+                                          ("bn_act_",) * BN_PATH[name], iters=BN_TIMED, warmup=1)
+        bn.bn_act_cuda = plain_cuda
+        try:
+            want = {"crops": est.predict_crops(crops, intr)}
+            if name == "bf16":
+                want["tiles"] = est.predict_tiles(tiles)
+            times[name]["forward_plain_ms"] = time_ms(lambda: fn(model, c_dev, i_dev), iters=10)
+        finally:
+            bn.bn_act_cuda = kernel_fn
+        for path in got:
+            for k in want[path]:
+                if not torch.equal(got[path][k], want[path][k]):
+                    fail(f"[24 bn] {name} {path}: {k} differs from the twin chain's")
+        print(f"[24 bn] {name} Config() R50@256 TTA B={BN_BATCH}: {counted} launches a forward, "
+              f"outputs equal to the twin chain's ({', '.join(got)}); crop-in forward "
+              f"{times[name]['forward_ms']:.2f} ms with the kernel, "
+              f"{times[name]['forward_plain_ms']:.2f} ms with the twin chain  [{card}]")
+        del model, est, got, want
+        torch.cuda.empty_cache()
+    ms = times["bf16"]["ms"]
+    print(f"[24 bn] the kernel's device time over a crop-in forward's {BN_PATH['bf16']} "
+          f"launches (profiler, {BN_TIMED} forwards): {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"(bytes), share {bound_ms / ms:.1%}  [{card}]")
+    print(f"[24 bn] phase time {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "bn_act", "route": "cuda", "source": "metro_pose3d_tpu_torch/csrc/bn_act.cu",
+            "replaces": "none: XLA fuses flax's BatchNorm and its ReLU into the ops around them",
+            "launches": sum(per_path.values()), "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "bound_share": bound_ms / ms, "ms_alone": alone_ms, "per_path": per_path,
+            "forward_ms": {k: v["forward_ms"] for k, v in times.items()},
+            "forward_plain_ms": {k: v["forward_plain_ms"] for k, v in times.items()}}
 
 
 @contextlib.contextmanager
@@ -3830,7 +4046,7 @@ def main() -> int:
     from metro_pose3d_tpu_torch.evaluation.engine import TILE_KEYS, PoseEstimator
     from metro_pose3d_tpu_torch.init import init_metro_model
     from metro_pose3d_tpu_torch.kernels import build
-    from metro_pose3d_tpu_torch.ops import occlusion, pool, warp
+    from metro_pose3d_tpu_torch.ops import bn, occlusion, pool, warp
     from metro_pose3d_tpu_torch.probes import time_ms
 
     dev = torch.device("cuda", 0)
@@ -4104,6 +4320,7 @@ def main() -> int:
         logdir = os.path.join(tmp, "run")
         pool.reset_launches()
         warp.reset_launches()
+        bn.reset_launches()
         occlusion.LAUNCHES = 0
         t0 = time.perf_counter()
         state, hist = run(logdir, {}, iter(host), 10, bg_bank=None)  # train() builds it
@@ -4121,6 +4338,8 @@ def main() -> int:
                           "warp": warp.LAUNCHES, "occluder": occlusion.LAUNCHES}
         if any(v == 0 for v in train_launches.values()):
             fail(f"the training path did not launch every kernel: {train_launches}")
+        if bn.LAUNCHES:  # train-mode batch norm is PyTorch code
+            fail(f"the training path launched the eval batch norm kernel: {bn.KERNEL_LAUNCHES}")
         check_pool_variants("training", ("fwd", "bwd"))
         check_warp_forms_launched("training", ("unit", torch.float32))
         train_forms = dict(warp.KERNEL_LAUNCHES)
@@ -4253,6 +4472,11 @@ def main() -> int:
     dp = phase_dp(dev, card, resident_ms["no background bank"])  # 21
     real = phase_real_files(dev, card)  # 22
     fin = phase_finish(rng, dev, card)  # 23
+    bn_record = phase_bn(rng, gen, dev, card)  # 24
+    bn_record["graph_replay_launches"] = {k: v["bn"] for k, v in fin["per_replay"].items()}
+    bn_record["launches"] += int8_path["bn"] + dataset["bn"] + mp["bn"] + fin["bn"]
+    bn_record["per_path"].update({**int8_path["bn_forward"], **dataset["bn_forward"],
+                                  **mp["bn_forward"], "train_step": 0})
     int8_records[0]["launches"] += dataset["qk1"] + mp["qk1"] + fin["qk1"]
     int8_records[1]["launches"] += dataset["qk2"] + mp["qk2"] + fin["qk2"]
     # launches of one replay of phase 23's CUDA graphs, by bundle
@@ -4322,6 +4546,7 @@ def main() -> int:
                occ_plain_ms, occ_bound, None),
         *probe_records,
         *int8_records,
+        bn_record,
     ]}
     for k in record["kernels"]:
         if k["launches"] == 0:

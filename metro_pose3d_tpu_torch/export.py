@@ -24,13 +24,14 @@ from metro_pose3d_tpu_torch.device import resolve_device
 from metro_pose3d_tpu_torch.evaluation.engine import make_predict_fn
 from metro_pose3d_tpu_torch.geom.joints import get_joint_info
 from metro_pose3d_tpu_torch.models.metro import MetroModel
-from metro_pose3d_tpu_torch.ops import int8, pool, warp
+from metro_pose3d_tpu_torch.ops import bn, int8, pool, warp
 
 WEIGHTS = "model.pt"
 WARMUP_CALLS = 2  # eager calls on a side stream before the capture
 # the kernel wrappers' launch counts: a capture records launches that run
 # only when the graph replays
-_LAUNCH_COUNTS = (pool.KERNEL_LAUNCHES, warp.KERNEL_LAUNCHES, int8.KERNEL_LAUNCHES)
+_LAUNCH_COUNTS = (pool.KERNEL_LAUNCHES, warp.KERNEL_LAUNCHES, int8.KERNEL_LAUNCHES,
+                  bn.KERNEL_LAUNCHES)
 
 
 def export_model(cfg: Config, model: MetroModel, out_dir: str,

@@ -64,6 +64,9 @@ SIGNATURES = {
     "metro_int8_conv": [_VP] * 5 + [_I] * 21 + [_VP],
     # x, scale, bias, out, form, in_dtype, out_dtype, relu, vec, n, C, stream
     "metro_int8_elementwise": [_VP] * 4 + [_I] * 5 + [_LL, _I, _VP],
+    # eval batch norm and its ReLU (csrc/bn_act.cu): x, y, mean, mul, bias, dtype, layout,
+    # relu, vec, n, C, hw, stream
+    "metro_bn_act": [_VP] * 5 + [_I] * 4 + [_LL, _I, _LL, _VP],
 }
 
 _lock = threading.Lock()

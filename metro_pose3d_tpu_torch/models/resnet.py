@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from metro_pose3d_tpu_torch.config import ModelConfig
+from metro_pose3d_tpu_torch.ops import bn as bn_op
 from metro_pose3d_tpu_torch.ops.pool import stem_max_pool
 from metro_pose3d_tpu_torch.parallel import mesh
 
@@ -97,7 +98,9 @@ class BatchNorm(nn.Module):
     cast to the compute dtype at the end.
 
     eval(): the running statistics, (x - mean) * (rsqrt(var + eps) * scale)
-    + bias (flax `nn.BatchNorm`).
+    + bias (flax `nn.BatchNorm`), through `ops/bn.py::batch_norm_act`: the
+    plain chain on the CPU, one kernel on CUDA; x must be in the compute
+    dtype (TypeError otherwise, on every device).
     train(): the batch moments as flax computes them, mean(x) and the "fast"
     variance max(mean(x^2) - mean^2, 0), with gradients through both; the
     running statistics become m * ra + (1 - m) * batch with m = momentum and
@@ -112,6 +115,8 @@ class BatchNorm(nn.Module):
     stay the same on every rank, and ghost BN groups are groups of the
     global batch, as in the JAX package: a group may take rows of several
     ranks. Without a group no collective is issued.
+    `forward(x, relu=True)` applies F.relu to the result, in eval mode in
+    the same pass.
     """
 
     def __init__(self, c: int, eps: float, momentum: float = 0.99, group_size: int = 0,
@@ -123,13 +128,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x):
+    def forward(self, x, relu: bool = False):
+        if not self.training:
+            if x.dtype != self.dtype:
+                raise TypeError(f"eval batch norm takes its compute dtype {self.dtype}, got "
+                                f"{x.dtype}")
+            return bn_op.batch_norm_act(x, self.mean, self.var, self.scale, self.bias, self.eps,
+                                        relu)
         shape = (1, -1, 1, 1)
         xf = x.float()
-        if not self.training:
-            mul = torch.rsqrt(self.var + self.eps) * self.scale
-            y = (xf - self.mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-            return y.to(self.dtype)
         if self.group_size > 0:
             y, mean, var = self._ghost(xf)
         else:
@@ -141,7 +148,8 @@ class BatchNorm(nn.Module):
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)
             self.var.copy_(m * self.var + (1 - m) * var)
-        return y.to(self.dtype)
+        y = y.to(self.dtype)
+        return F.relu(y) if relu else y
 
     @staticmethod
     def _moments(xf):
@@ -289,7 +297,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         if self.preact:
-            h = F.relu(self.bn_pre(x))
+            h = self.bn_pre(x, relu=True)
             shortcut = self.proj(h) if self.change else _shortcut(x, self.strides)
             if self.fused and self.conv1.mode == "int8":  # not while calibrating
                 # quantize (QK2) -> conv1 with junction 1 in its epilogue ->
@@ -299,12 +307,12 @@ class Bottleneck(nn.Module):
                                            self.conv2)
                 h = self.conv2.requant_out(h, self.bn2.affine(), self.conv3)
                 return shortcut + self.conv3.forward_int8(h)
-            h = F.relu(self.bn1(self.conv1(h)))
-            h = F.relu(self.bn2(self.conv2(h)))
+            h = self.bn1(self.conv1(h), relu=True)
+            h = self.bn2(self.conv2(h), relu=True)
             return shortcut + self.conv3(h)
         shortcut = self.bn_proj(self.proj(x)) if self.change else _shortcut(x, self.strides)
-        h = F.relu(self.bn1(self.conv1(x)))
-        h = F.relu(self.bn2(self.conv2(h)))
+        h = self.bn1(self.conv1(x), relu=True)
+        h = self.bn2(self.conv2(h), relu=True)
         h = self.bn3(self.conv3(h))
         return F.relu(shortcut + h)
 
@@ -336,12 +344,12 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         if self.preact:
-            h = F.relu(self.bn_pre(x))
+            h = self.bn_pre(x, relu=True)
             shortcut = self.proj(h) if self.change else _shortcut(x, self.strides)
-            h = F.relu(self.bn1(self.conv1(h)))
+            h = self.bn1(self.conv1(h), relu=True)
             return shortcut + self.conv2(h)
         shortcut = self.bn_proj(self.proj(x)) if self.change else _shortcut(x, self.strides)
-        h = F.relu(self.bn1(self.conv1(x)))
+        h = self.bn1(self.conv1(x), relu=True)
         h = self.bn2(self.conv2(h))
         return F.relu(shortcut + h)
 
@@ -445,8 +453,8 @@ class ResNet(nn.Module):
     def forward(self, x):
         x = self.conv_stem(x.to(self.dtype))
         if not self.preact:
-            x = F.relu(self.bn_stem(x))
+            x = self.bn_stem(x, relu=True)
         x = stem_max_pool(x, self.pool_mode)
         for name in self.blocks:
             x = getattr(self, name)(x)
-        return F.relu(self.bn_final(x)) if self.preact else x
+        return self.bn_final(x, relu=True) if self.preact else x

@@ -13,9 +13,12 @@ import pytest
 import torch
 
 from metro_pose3d_tpu_torch.config import Config, apply_overrides
-from metro_pose3d_tpu_torch.evaluation.engine import make_predict_fn
+from metro_pose3d_tpu_torch.evaluation.engine import PoseEstimator, make_predict_fn
+from metro_pose3d_tpu_torch.geom.joints import H36M_17
 from metro_pose3d_tpu_torch.init import init_metro_model
-from metro_pose3d_tpu_torch.ops import pool, warp
+from metro_pose3d_tpu_torch.models.resnet import BatchNorm
+from metro_pose3d_tpu_torch.ops import bn, pool, warp
+from test_torch_bn import DTYPES, _case
 
 pytestmark = pytest.mark.cuda
 
@@ -792,9 +795,10 @@ def test_aot_compile_replays_the_eager_predict(cuda, quantize):
     intr = torch.tensor([[90.0, 0, 31.5], [0, 90.0, 31.5], [0, 0, 1]]).expand(4, 3, 3)
     pool.reset_launches()
     int8.reset_launches()
+    bn.reset_launches()
     compiled = aot_compile(fn, model, 4, 64)
     assert compiled.graph is not None and pool.LAUNCHES == 2  # the two warm-up calls
-    counted = (pool.LAUNCHES, int8.launches())
+    counted = (pool.LAUNCHES, int8.launches(), bn.LAUNCHES)
     first = None
     for _ in range(2):
         crops = torch.from_numpy(rng.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8)).to(cuda)
@@ -807,10 +811,14 @@ def test_aot_compile_replays_the_eager_predict(cuda, quantize):
     for key in kept:
         assert torch.equal(first[key], kept[key]), key
     per = {k: n for d in compiled.launches for k, n in d.items()}
-    assert per and (pool.LAUNCHES, int8.launches()) == (
+    per_bn = sum(n for k, n in per.items() if k in bn.KERNEL_LAUNCHES)
+    assert per and (pool.LAUNCHES, int8.launches(), bn.LAUNCHES) == (
         counted[0] + 4 * sum(n for k, n in per.items() if k[0] == "fwd"),
-        counted[1] + 4 * sum(n for k, n in per.items() if k[0].startswith("int8")))
+        counted[1] + 4 * sum(n for k, n in per.items() if k[0].startswith("int8")),
+        counted[2] + 4 * per_bn)
     assert (sum(n for k, n in per.items() if k[0] == "int8_conv") > 0) == (quantize == "int8")
+    # tiny: 4 units of 3 batch norms and bn_final; int8 folds bn1 and bn2 into QK1
+    assert per_bn == {"none": 13, "int8": 5}[quantize]
     with pytest.raises(TypeError, match="compiled for"):
         compiled(model, crops[:2], intr[:2])
 
@@ -889,3 +897,130 @@ def test_nvjpeg_refuses_what_is_not_a_jpeg(nvjpeg):
         data = f.read()
     with pytest.raises(ValueError, match="item 1"):
         nvjpeg.decode_jpeg_batch([data, b"not a jpeg"], threads=2)
+
+
+# ---------------------------------------- eval batch norm and its ReLU (ops/bn.py)
+
+
+def _r50_bn_shapes(cuda):
+    """[(C, H, W, relu)] of the batch norms of a Config() forward (R50 v2 @ 256)."""
+    model = init_metro_model(Config().model, 0, cuda).eval()
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_pre_hook(
+                lambda _, args, kw: shapes.append((*args[0].shape[1:], kw.get("relu", False))),
+                with_kwargs=True)
+    with torch.no_grad():
+        model(torch.zeros(1, 256, 256, 3, device=cuda))
+    return shapes
+
+
+def test_bn_kernel_bit_exact_at_the_r50_path_shapes(cuda):
+    """The 49 batch norms of the bf16 serving forward at 128 rows (64 crops,
+    flip TTA), each with and without the ReLU, in the vec16 variant."""
+    shapes = _r50_bn_shapes(cuda)
+    assert len(shapes) == 49 and all(relu for *_, relu in shapes)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    bn.reset_launches()
+    for c, h, w, _ in shapes:
+        x = (torch.randn((128, c, h, w), generator=gen, device=cuda) * 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        mean, scale, bias = (torch.randn(c, generator=gen, device=cuda) for _ in range(3))
+        mul = torch.rsqrt(torch.rand(c, generator=gen, device=cuda) + 0.05) * scale
+        for relu in (False, True):
+            assert _same_bits(bn.bn_act_cuda(x, mean, mul, bias, relu),
+                              bn.bn_act_plain(x, mean, mul, bias, relu)), (c, h, w, relu)
+    assert bn.launches("bfloat16", var="vec16") == bn.LAUNCHES == 98
+
+
+@pytest.mark.parametrize("width", [None, 1], ids=["auto", "scalar"])
+@pytest.mark.parametrize("relu", [False, True], ids=["affine", "relu"])
+@pytest.mark.parametrize("c", [8, 64, 2048])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_bn_kernel_bit_exact_at_the_cpu_cases(cuda, dtype, layout, c, relu, width):
+    """tests/test_torch_bn.py's cases (odd N*H*W; NaN, +-inf and -0.0, a
+    channel that takes -0.0 to -0.0) on the card: the kernel's bits, NaN and
+    the sign of zero included, are the twin's."""
+    x, mean, var, scale, bias = (t.to(cuda) for t in _case(c, DTYPES[dtype], layout))
+    mul = torch.rsqrt(var + 1e-3) * scale
+    got = bn.bn_act_cuda(x, mean, mul, bias, relu, width)
+    assert _same_bits(got, bn.bn_act_plain(x, mean, mul, bias, relu))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_bn_kernel_takes_unaligned_tensors_in_the_scalar_variant(cuda, dtype):
+    base = torch.randn(1 + 2 * 64 * 5 * 5, device=cuda).to(DTYPES[dtype])
+    x = base[1:].view(2, 5, 5, 64).permute(0, 3, 1, 2)  # channels_last, 2 or 4 bytes off
+    assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 16
+    mean, mul, bias = (torch.randn(64, device=cuda) for _ in range(3))
+    bn.reset_launches()
+    got = bn.bn_act_cuda(x, mean, mul, bias, True)
+    assert bn.launches(var="scalar") == 1
+    assert _same_bits(got, bn.bn_act_plain(x, mean, mul, bias, True))
+    with pytest.raises(ValueError, match="does not fit"):
+        bn.bn_act_cuda(x, mean, mul, bias, True, width=16 // x.element_size())
+
+
+def test_bn_kernel_refuses_a_gradient(cuda):
+    x = torch.randn(2, 8, 4, 4, device=cuda).contiguous(memory_format=torch.channels_last)
+    c = torch.zeros(8, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bn.bn_act_cuda(x.clone().requires_grad_(True), c, c, c)
+    mod = BatchNorm(8, 1e-3).to(cuda).eval()
+    with pytest.raises(RuntimeError, match="no backward"):
+        mod(x)  # its scale and bias need a gradient
+    with torch.no_grad():
+        assert mod(x, relu=True).shape == x.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_kernel_counts_no_launch_for_an_empty_tensor(cuda, dtype):
+    """An empty input launches nothing, so it counts nothing."""
+    x = torch.empty((0, 64, 8, 8), dtype=dtype, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    c = torch.zeros(64, device=cuda)
+    bn.reset_launches()
+    for relu in (False, True):
+        y = bn.bn_act_cuda(x, c, c, c, relu)
+        assert y.shape == x.shape and y.dtype == dtype
+        assert y.is_contiguous(memory_format=torch.channels_last)
+    assert bn.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_serving_with_the_bn_kernel_equals_the_twin_chain(cuda, quantize, monkeypatch):
+    """`predict_crops` and `predict_tiles` at Config() (R50 v2 @ 256, TTA,
+    B = 64; int8 calibrated on noise): 49 kernel launches a bf16 forward, 17
+    an int8 one, and the outputs of the same calls with the twin's chain on
+    the card, bit for bit."""
+    from metro_pose3d_tpu_torch.models.quantize import calibrate
+
+    cfg = apply_overrides(Config(), {"model.quantize": quantize})
+    model = init_metro_model(cfg.model, 7, cuda)
+    rng = np.random.RandomState(7)
+    if quantize == "int8":
+        calibrate(model, [torch.from_numpy(rng.uniform(-1, 1, (16, 256, 256, 3)).astype(
+            np.float32)).to(cuda) for _ in range(2)])
+    est = PoseEstimator(cfg, model, H36M_17, flip_tta=True, reconstruct=True)
+    b = 64
+    crops = rng.randint(0, 256, (b, 256, 256, 3)).astype(np.uint8)
+    intr = np.tile(np.array([[900.0, 0, 127.5], [0, 900.0, 127.5], [0, 0, 1]], np.float32),
+                   (b, 1, 1))
+    h, k, _ = _params(rng, b, 512, 256)
+    tiles = {"source": rng.randint(0, 256, (b, 512, 512, 3)).astype(np.uint8),
+             "warp_h": h, "warp_k": k, "warp_dist": torch.zeros(b, 5), "intrinsics": intr}
+    per_forward = {"none": 49, "int8": 17}[quantize]
+    bn.reset_launches()
+    got = [est.predict_crops(crops, intr)]
+    assert bn.LAUNCHES == bn.launches(relu=True, var="vec16") == per_forward
+    got.append(est.predict_tiles(tiles))
+    assert bn.LAUNCHES == 2 * per_forward
+    monkeypatch.setattr(bn, "bn_act_cuda", lambda x, mean, mul, bias, relu=False:
+                        bn.bn_act_plain(x, mean, mul, bias, relu))
+    want = [est.predict_crops(crops, intr), est.predict_tiles(tiles)]
+    assert bn.LAUNCHES == 2 * per_forward
+    for g, w in zip(got, want):
+        for key in w:
+            assert torch.equal(g[key], w[key]), key

@@ -170,11 +170,20 @@ def _grads_on_same_crops(cfg, jstate, port_model, batch, bank, backgrounds=None)
     # A ReLU input within the two forwards' roundoff (~1e-6) of 0 may take
     # the other side in the other package and move its gradient entry; the
     # comparison holds to roundoff only on a batch that has none.
+    # (each of these batch norms applies the ReLU itself, `relu=True`: the
+    # margin is read from its output before it)
     margins = []
+
+    def record_margin(forward):
+        def wrapped(x, relu=False):
+            y = forward(x)
+            margins.append(float(y.detach().abs().min()))
+            return torch.nn.functional.relu(y) if relu else y
+        return wrapped
+
     for name, mod in m.named_modules():
         if name.rsplit(".", 1)[-1] in ("bn_pre", "bn1", "bn2", "bn_final"):
-            mod.register_forward_hook(
-                lambda mod, inp, out: margins.append(float(out.detach().abs().min())))
+            mod.forward = record_margin(mod.forward)
     l3d, l2d = m(torch.from_numpy(np.array(crops)))
     assert min(margins) >= 2e-6, f"a ReLU input {min(margins)} from 0: pick another batch"
     compute_losses(l3d, l2d, batch_to_device(batch, "cpu"), cfg, 0)[0].backward()
