@@ -246,6 +246,17 @@ nvcc. It builds the CUDA kernels from `metro_pose3d_tpu_torch/csrc/` into
              the same shapes, and the crop-in forward with each. Phases 10,
              17, 19, 20 and 23 count its launches on their paths too: none in
              a train step, 49 a bf16 forward and 17 an int8 one elsewhere.
+ 25 effv2    EfficientNetV2-L (`model.backbone="efficientnetv2-l"`): the
+             depthwise kernel (`ops/dwconv.py`) bit for bit its twin at the 61
+             depthwise convs of a forward of 128 rows (bf16, channels_last,
+             both variants), the batch norm kernel bit for bit its twin at the
+             217 batch norms (142 with the SiLU); a crop-in TTA batch of 64
+             through `PoseEstimator` launches 61 depthwise and 217 batch norm
+             kernels (142 SiLU) and equals the same batch with both twins;
+             then (informative) the depthwise kernel alone at the 61 shapes
+             beside its twin, cuDNN's grouped conv and the bytes bound, both
+             kernels' device time over the forward, and the forward's time
+             with the kernels and with the twins.
 
 A failed phase raises, so the script exits non-zero. The last two lines are
 the kernels' JSON record and `{"ok": true, "device": {...}}`. Each kernel's
@@ -1584,7 +1595,7 @@ def phase_int8(rng, gen, dev, card, rates):
             "int_mm": len(int_mm_calls), "bn": bn.LAUNCHES}
     bn_forward = {"int8_crop": bn_crop / len(crop_reqs),
                   "int8_tile": (bn.LAUNCHES - bn_crop) / len(tile_reqs)}
-    if set(bn_forward.values()) != {17} or bn.launches(relu=False):
+    if set(bn_forward.values()) != {17} or bn.launches(act="none"):
         fail(f"int8 serving launched the batch norm kernel {bn_forward} times a forward, want "
              f"17 (bn_pre, bn_final), all with the ReLU: {bn.KERNEL_LAUNCHES}")
     path_warp_forms = dict(warp.KERNEL_LAUNCHES)
@@ -3852,19 +3863,19 @@ BN_PATH = {"bf16": 49, "int8": 17}  # batch norm launches a forward
 BN_TIMED = 5  # forwards profiled for the kernel's device time on the path
 
 
-def bn_path_shapes(dev) -> list:
-    """[(C, H, W, relu)] of the batch norms of a Config() forward (R50 v2 @
-    256), in order, from a forward of one crop."""
+def bn_path_shapes(dev, cfg=None) -> list:
+    """[(C, H, W, act)] of the batch norms of a `cfg` forward (Config() by
+    default: R50 v2 @ 256), in order, from a forward of one crop."""
     from metro_pose3d_tpu_torch.config import Config
     from metro_pose3d_tpu_torch.init import init_metro_model
     from metro_pose3d_tpu_torch.models.resnet import BatchNorm
 
-    model = init_metro_model(Config().model, SEED, dev).eval()
+    model = init_metro_model((cfg or Config()).model, SEED, dev).eval()
     shapes = []
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.register_forward_pre_hook(
-                lambda _, args, kw: shapes.append((*args[0].shape[1:], kw.get("relu", False))),
+                lambda _, args, kw: shapes.append((*args[0].shape[1:], kw.get("act", "none"))),
                 with_kwargs=True)
     with torch.no_grad():
         model(torch.zeros(1, 256, 256, 3, device=dev))
@@ -3913,7 +3924,7 @@ def phase_bn(rng, gen, dev, card) -> dict:
     print(f"[24 bn] cuobjdump: channels_last vec16 instances {usage.get('bn_act_nhwc_kernel')}, "
           f"flat instances {usage.get('bn_act_flat_kernel')}")
     shapes = bn_path_shapes(dev)
-    if len(shapes) != BN_PATH["bf16"] or not all(relu for *_, relu in shapes):
+    if len(shapes) != BN_PATH["bf16"] or not all(act == "relu" for *_, act in shapes):
         fail(f"[24 bn] a Config() forward ran {len(shapes)} batch norms: {shapes}")
 
     # (a) bit for bit at the path's shapes, and its time alone there
@@ -3925,14 +3936,14 @@ def phase_bn(rng, gen, dev, card) -> dict:
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
         mean, scale, bias = (torch.randn(c, generator=gen, device=dev) for _ in range(3))
         mul = torch.rsqrt(torch.rand(c, generator=gen, device=dev) + 0.05 + 1e-3) * scale
-        for relu in (True, False):
-            want = bn.bn_act_plain(x, mean, mul, bias, relu)
+        for act in ("relu", "none"):
+            want = bn.bn_act_plain(x, mean, mul, bias, act)
             for width in (None, 1):
-                if not same_bits(bn.bn_act_cuda(x, mean, mul, bias, relu, width), want):
-                    fail(f"[24 bn] [{rows},{c},{h},{w}] bf16 relu {relu} width {width}: the "
+                if not same_bits(bn.bn_act_cuda(x, mean, mul, bias, act, width), want):
+                    fail(f"[24 bn] [{rows},{c},{h},{w}] bf16 act {act} width {width}: the "
                          f"kernel differs from its twin")
-        alone_ms += time_ms(lambda: bn.bn_act_cuda(x, mean, mul, bias, True))
-        plain_ms += time_ms(lambda: bn.bn_act_plain(x, mean, mul, bias, True))
+        alone_ms += time_ms(lambda: bn.bn_act_cuda(x, mean, mul, bias, "relu"))
+        plain_ms += time_ms(lambda: bn.bn_act_plain(x, mean, mul, bias, "relu"))
         bound_ms += bound(2 * nbytes(x), 5 * x.numel())[0]
         del x, want
     # a shape: 2 checks in each variant, then 3 + 20 timed calls in vec16
@@ -3943,12 +3954,12 @@ def phase_bn(rng, gen, dev, card) -> dict:
         for fmt in (torch.channels_last, torch.contiguous_format):
             for shape in ((8, 256, 64, 64), (3, 24, 7, 9)):
                 x, mean, mul, bias = bn_special(gen, dev, shape, dtype, fmt)
-                for relu in (True, False):
-                    want = bn.bn_act_plain(x, mean, mul, bias, relu)
+                for act in bn.ACTIVATIONS:
+                    want = bn.bn_act_plain(x, mean, mul, bias, act)
                     for width in (None, 1):
-                        got = bn.bn_act_cuda(x, mean, mul, bias, relu, width)
+                        got = bn.bn_act_cuda(x, mean, mul, bias, act, width)
                         if got.stride() != want.stride() or not same_bits(got, want):
-                            fail(f"[24 bn] {shape} {dtype} {fmt} relu {relu} width {width}: "
+                            fail(f"[24 bn] {shape} {dtype} {fmt} act {act} width {width}: "
                                  f"the kernel differs from its twin on NaN, inf and -0.0")
     print(f"[24 bn] kernel == twin bit for bit at the {len(shapes)} batch norms of a Config() "
           f"forward of {rows} rows (bf16, channels_last, with and without the ReLU, vec16 and "
@@ -3959,8 +3970,8 @@ def phase_bn(rng, gen, dev, card) -> dict:
     # (b) the paths: launches, outputs against the twin's chain, times
     kernel_fn = bn.bn_act_cuda
 
-    def plain_cuda(x, mean, mul, bias, relu=False, width=None):
-        return bn.bn_act_plain(x, mean, mul, bias, relu)
+    def plain_cuda(x, mean, mul, bias, act="none", width=None):
+        return bn.bn_act_plain(x, mean, mul, bias, act)
 
     crops = rng.randint(0, 256, (BN_BATCH, 256, 256, 3)).astype(np.uint8)
     intr = crop_params(rng, BN_BATCH, TILE, 256, "normal")[3]
@@ -3981,7 +3992,7 @@ def phase_bn(rng, gen, dev, card) -> dict:
             per_path["bf16_tile"] = bn.LAUNCHES - per_path["bf16_crop"]
         torch.cuda.synchronize()
         counted = {k: n for k, n in per_path.items() if k.startswith(name)}
-        if set(counted.values()) != {BN_PATH[name]} or bn.launches(relu=False) or \
+        if set(counted.values()) != {BN_PATH[name]} or bn.launches(act="none") or \
                 bn.launches(var="scalar"):
             fail(f"[24 bn] {name}: launches a forward {counted}, want {BN_PATH[name]}, all "
                  f"with the ReLU in the vec16 variant: {bn.KERNEL_LAUNCHES}")
@@ -4021,6 +4032,184 @@ def phase_bn(rng, gen, dev, card) -> dict:
             "bound_share": bound_ms / ms, "ms_alone": alone_ms, "per_path": per_path,
             "forward_ms": {k: v["forward_ms"] for k, v in times.items()},
             "forward_plain_ms": {k: v["forward_plain_ms"] for k, v in times.items()}}
+
+
+# --- phase 25: EfficientNetV2-L's depthwise convs and its serving path ---------
+
+EFF_OVERRIDES = {"model.backbone": "efficientnetv2-l", "model.bn_epsilon": "0.001",
+                 "model.bn_momentum": "0.9"}
+EFF_PATH = {"dwconv": 61, "bn": 217, "bn_silu": 142}  # launches a forward
+
+
+def dwconv_path_convs(dev, cfg) -> list:
+    """[(conv, (C, H, W))] of the depthwise convs of a `cfg` forward, in
+    order, from a forward of one crop."""
+    from metro_pose3d_tpu_torch.init import init_metro_model
+    from metro_pose3d_tpu_torch.models.resnet import Conv
+
+    model = init_metro_model(cfg.model, SEED, dev).eval()
+    convs = []
+    for m in model.modules():
+        if isinstance(m, Conv) and m.groups > 1:
+            m.register_forward_pre_hook(
+                lambda mod, args: convs.append((mod, tuple(args[0].shape[1:]))))
+    with torch.no_grad():
+        model(torch.zeros(1, 256, 256, 3, device=dev))
+    return convs
+
+
+def cudnn_depthwise(x, weight, conv):
+    """The depthwise conv through F.conv2d (cuDNN's grouped kernel for a
+    channels_last bf16 input), padded as `Conv` pads a dense conv."""
+    top, bottom, left, right = conv.pads(*x.shape[2:])
+    w = weight.to(x.dtype)
+    if (top, left) == (bottom, right):
+        return F.conv2d(x, w, None, conv.stride, (top, left), conv.dilation, x.shape[1])
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, None, conv.stride, 0,
+                    conv.dilation, x.shape[1])
+
+
+def phase_effv2(rng, gen, dev, card) -> tuple:
+    """25: EfficientNetV2-L (`model.backbone="efficientnetv2-l"`). The
+    depthwise kernel bit for bit its twin at the 61 convs of a bf16 forward
+    of 128 rows, in both variants, and its time alone there (CUDA events)
+    beside the twin's, cuDNN's grouped conv's and the bytes bound; the
+    batch norm kernel bit for bit its twin at the 217 batch norms (142 with
+    the SiLU); a crop-in TTA batch of 64 through `PoseEstimator`: 61
+    depthwise and 217 batch norm launches (142 SiLU), outputs equal to the
+    same batch with both kernels' twins, the two kernels' device time over
+    the forward (the profiler), and the forward's time with the kernels and
+    with the twins. -> (the depthwise kernel's record, the batch norm
+    launches and their per-path count)."""
+    from metro_pose3d_tpu_torch.config import Config, apply_overrides
+    from metro_pose3d_tpu_torch.evaluation.engine import PoseEstimator
+    from metro_pose3d_tpu_torch.geom.joints import H36M_17
+    from metro_pose3d_tpu_torch.init import init_metro_model
+    from metro_pose3d_tpu_torch.ops import bn, dwconv
+    from metro_pose3d_tpu_torch.probes import time_ms
+
+    t_phase = time.perf_counter()
+    cfg = apply_overrides(Config(), EFF_OVERRIDES)
+    rows = 2 * BN_BATCH
+
+    # (a) the depthwise kernel at the path's shapes: bits, and times alone
+    convs = dwconv_path_convs(dev, cfg)
+    if len(convs) != EFF_PATH["dwconv"]:
+        fail(f"[25 effv2] a forward ran {len(convs)} depthwise convs, want {EFF_PATH['dwconv']}")
+    dwconv.reset_launches()
+    alone_ms = plain_ms = cudnn_ms = bound_ms = 0.0
+    for conv, (c, h, w) in convs:
+        x = (torch.randn((rows, c, h, w), generator=gen, device=dev) * 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        weight = torch.randn((c, 1, 3, 3), generator=gen, device=dev) * 0.4
+        pads = conv.pads(h, w)
+        args = (x, weight, conv.stride, conv.dilation, pads)
+        want = dwconv.depthwise_conv_plain(*args)
+        for width in (None, 1):
+            if not same_bits(dwconv.depthwise_conv_cuda(*args, width=width), want):
+                fail(f"[25 effv2] depthwise [{rows},{c},{h},{w}] stride {conv.stride} dilation "
+                     f"{conv.dilation} width {width}: the kernel differs from its twin")
+        lib = cudnn_depthwise(x, weight, conv)
+        if lib.shape != want.shape:
+            fail(f"[25 effv2] cuDNN's depthwise conv gave {tuple(lib.shape)}, the twin "
+                 f"{tuple(want.shape)}")
+        alone_ms += time_ms(lambda: dwconv.depthwise_conv_cuda(*args))
+        plain_ms += time_ms(lambda: dwconv.depthwise_conv_plain(*args), iters=5)
+        cudnn_ms += time_ms(lambda: cudnn_depthwise(x, weight, conv), iters=5)
+        bound_ms += bound(nbytes(x, want) + 9 * c * x.element_size(), 18 * want.numel())[0]
+        del x, want, lib
+    # a conv: 2 checks, then 3 + 20 timed calls in vec16
+    if (dwconv.launches(var="scalar"), dwconv.launches(var="vec16")) != (len(convs),
+                                                                         24 * len(convs)):
+        fail(f"[25 effv2] depthwise variants launched {dwconv.KERNEL_LAUNCHES}")
+    print(f"[25 effv2] depthwise kernel == twin bit for bit at the {len(convs)} depthwise convs "
+          f"of an EfficientNetV2-L forward of {rows} rows (bf16, channels_last, vec16 and "
+          f"scalar); alone at those shapes: kernel {alone_ms:.4f} ms, twin {plain_ms:.4f} ms, "
+          f"cuDNN grouped conv {cudnn_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), share "
+          f"{bound_ms / alone_ms:.1%}  [{card}]")
+
+    # (b) the batch norm kernel at the path's shapes, each with its activation
+    shapes = bn_path_shapes(dev, cfg)
+    acts = [act for *_, act in shapes]
+    if (len(shapes), acts.count("silu")) != (EFF_PATH["bn"], EFF_PATH["bn_silu"]):
+        fail(f"[25 effv2] a forward ran {len(shapes)} batch norms, {acts.count('silu')} SiLU")
+    differing = total = 0
+    for c, h, w, act in shapes:
+        x = (torch.randn((rows, c, h, w), generator=gen, device=dev) * 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        mean, scale, bias = (torch.randn(c, generator=gen, device=dev) for _ in range(3))
+        mul = torch.rsqrt(torch.rand(c, generator=gen, device=dev) + 0.05 + 1e-3) * scale
+        want = bn.bn_act_plain(x, mean, mul, bias, act)
+        for width in (None, 1):
+            got = bn.bn_act_cuda(x, mean, mul, bias, act, width)
+            if not same_bits(got, want):
+                differing += int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            total += got.numel()
+        del x, want, got
+    if differing:
+        fail(f"[25 effv2] batch norm: {differing} of {total} elements differ from the twin")
+    print(f"[25 effv2] batch norm kernel == twin bit for bit at the {len(shapes)} batch norms "
+          f"of the forward ({acts.count('silu')} SiLU, {acts.count('none')} none; vec16 and "
+          f"scalar): 0 of {total} elements differ  [{card}]")
+
+    # (c) the serving path
+    model = init_metro_model(cfg.model, SEED, dev)
+    est = PoseEstimator(cfg, model, H36M_17, flip_tta=True, reconstruct=True)
+    crops = rng.randint(0, 256, (BN_BATCH, 256, 256, 3)).astype(np.uint8)
+    intr = crop_params(rng, BN_BATCH, TILE, 256, "normal")[3]
+    est.predict_crops(crops, intr)  # warm-up: cuBLAS and cuDNN pick their kernels
+    torch.cuda.synchronize()
+    bn.reset_launches()
+    dwconv.reset_launches()
+    got = est.predict_crops(crops, intr)
+    torch.cuda.synchronize()
+    counted = {"dwconv": dwconv.launches("bfloat16", "vec16"), "bn": bn.LAUNCHES,
+               "bn_silu": bn.launches("bfloat16", "silu", "vec16")}
+    if counted != EFF_PATH or dwconv.LAUNCHES != EFF_PATH["dwconv"] or bn.launches(var="scalar"):
+        fail(f"[25 effv2] crop-in launches {counted}, want {EFF_PATH}: {bn.KERNEL_LAUNCHES} "
+             f"{dwconv.KERNEL_LAUNCHES}")
+    c_dev, i_dev = torch.from_numpy(crops).to(dev), torch.from_numpy(intr).to(dev)
+    fn = est._crops_fn
+    forward_ms = time_ms(lambda: fn(model, c_dev, i_dev), iters=10)
+    dw_ms = device_ms(lambda: fn(model, c_dev, i_dev), ("dwconv_nhwc_kernel",) * EFF_PATH["dwconv"],
+                      iters=BN_TIMED, warmup=1)
+    bn_ms = device_ms(lambda: fn(model, c_dev, i_dev), ("bn_act_",) * EFF_PATH["bn"],
+                      iters=BN_TIMED, warmup=1)
+    kernels = bn.bn_act_cuda, dwconv.depthwise_conv_cuda
+
+    def bn_plain(x, mean, mul, bias, act="none", width=None):
+        return bn.bn_act_plain(x, mean, mul, bias, act)
+
+    def dw_plain(x, weight, stride, dilation, pads, width=None):
+        return dwconv.depthwise_conv_plain(x, weight, stride, dilation, pads)
+
+    bn.bn_act_cuda, dwconv.depthwise_conv_cuda = bn_plain, dw_plain
+    try:
+        want = est.predict_crops(crops, intr)
+        forward_plain_ms = time_ms(lambda: fn(model, c_dev, i_dev), iters=5)
+    finally:
+        bn.bn_act_cuda, dwconv.depthwise_conv_cuda = kernels
+    for k in want:
+        if not (torch.isfinite(got[k]).all() and torch.equal(got[k], want[k])):
+            fail(f"[25 effv2] crop-in {k} differs from the twins' chain's or is not finite")
+    print(f"[25 effv2] EfficientNetV2-L@256 bf16 crop-in TTA B={BN_BATCH} through PoseEstimator: "
+          f"{counted} launches a forward, outputs equal to the twins' chain's; forward "
+          f"{forward_ms:.2f} ms with the kernels, {forward_plain_ms:.2f} ms with the twins; device "
+          f"time over the forward (profiler, {BN_TIMED} forwards): depthwise {dw_ms:.4f} ms "
+          f"(bound {bound_ms:.4f}, share {bound_ms / dw_ms:.1%}), batch norm {bn_ms:.4f} ms  "
+          f"[{card}]")
+    del model, est, got, want
+    torch.cuda.empty_cache()
+    print(f"[25 effv2] phase time {time.perf_counter() - t_phase:.1f} s")
+    record = {"name": "dwconv", "route": "cuda", "source": "metro_pose3d_tpu_torch/csrc/dwconv.cu",
+              "replaces": "none: the JAX package has no EfficientNetV2",
+              "launches": EFF_PATH["dwconv"], "max_abs_err": 0.0, "ms": dw_ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+              "library_ms": cudnn_ms, "bound_share": bound_ms / dw_ms, "ms_alone": alone_ms,
+              "per_path": {"effv2_crop": EFF_PATH["dwconv"]}, "forward_ms": forward_ms,
+              "forward_plain_ms": forward_plain_ms}
+    return record, {"bn": EFF_PATH["bn"], "bn_forward": {"effv2_crop": EFF_PATH["bn"]},
+                    "bn_ms": bn_ms}
 
 
 @contextlib.contextmanager
@@ -4473,10 +4662,12 @@ def main() -> int:
     real = phase_real_files(dev, card)  # 22
     fin = phase_finish(rng, dev, card)  # 23
     bn_record = phase_bn(rng, gen, dev, card)  # 24
+    dw_record, effv2 = phase_effv2(rng, gen, dev, card)  # 25
     bn_record["graph_replay_launches"] = {k: v["bn"] for k, v in fin["per_replay"].items()}
-    bn_record["launches"] += int8_path["bn"] + dataset["bn"] + mp["bn"] + fin["bn"]
+    bn_record["launches"] += int8_path["bn"] + dataset["bn"] + mp["bn"] + fin["bn"] + effv2["bn"]
     bn_record["per_path"].update({**int8_path["bn_forward"], **dataset["bn_forward"],
-                                  **mp["bn_forward"], "train_step": 0})
+                                  **mp["bn_forward"], **effv2["bn_forward"], "train_step": 0})
+    bn_record["effv2_forward_ms"] = effv2["bn_ms"]
     int8_records[0]["launches"] += dataset["qk1"] + mp["qk1"] + fin["qk1"]
     int8_records[1]["launches"] += dataset["qk2"] + mp["qk2"] + fin["qk2"]
     # launches of one replay of phase 23's CUDA graphs, by bundle
@@ -4547,6 +4738,7 @@ def main() -> int:
         *probe_records,
         *int8_records,
         bn_record,
+        dw_record,
     ]}
     for k in record["kernels"]:
         if k["launches"] == 0:

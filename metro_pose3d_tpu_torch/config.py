@@ -29,7 +29,13 @@ from metro_pose3d_tpu_torch import reference_constants as C
 class ModelConfig:
     model_class: str = "metro"      # "metro" | "twofive" (2.5D baseline)
     backbone: str = "resnet50"      # resnet50/101/152 (bottleneck), resnet18/
-                                    # 34 (basic block), "tiny" (tests)
+                                    # 34 (basic block), "tiny" (tests);
+                                    # port only: "efficientnetv2-l" and
+                                    # "efficientnetv2-tiny" (tests), eval-mode
+                                    # serving in bf16/float32, SAME padding
+                                    # (models/efficientnet.py); the ResNet
+                                    # fields preactivation, stride_position
+                                    # and the quantize_* tuning do not apply
     preactivation: bool = True      # ResNet v2 (preact) vs v1.5
     conv_padding: str = "same"      # "same" (TF parity) | "torch"/"keras"
                                     # (for converted ImageNet weights; they

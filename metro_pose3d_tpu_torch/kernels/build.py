@@ -64,9 +64,12 @@ SIGNATURES = {
     "metro_int8_conv": [_VP] * 5 + [_I] * 21 + [_VP],
     # x, scale, bias, out, form, in_dtype, out_dtype, relu, vec, n, C, stream
     "metro_int8_elementwise": [_VP] * 4 + [_I] * 5 + [_LL, _I, _VP],
-    # eval batch norm and its ReLU (csrc/bn_act.cu): x, y, mean, mul, bias, dtype, layout,
-    # relu, vec, n, C, hw, stream
+    # eval batch norm and its activation (csrc/bn_act.cu): x, y, mean, mul, bias, dtype,
+    # layout, act (0 none, 1 ReLU, 2 SiLU), vec, n, C, hw, stream
     "metro_bn_act": [_VP] * 5 + [_I] * 4 + [_LL, _I, _LL, _VP],
+    # the depthwise conv (csrc/dwconv.cu): x, w, y, dtype, vec, N, H, W, C, OH, OW, k,
+    # stride, dilation, pad_top, pad_left, stream
+    "metro_dwconv": [_VP] * 3 + [_I] * 13 + [_VP],
 }
 
 _lock = threading.Lock()

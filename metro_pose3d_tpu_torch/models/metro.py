@@ -1,9 +1,13 @@
 """MeTRo model: backbone -> metric volumetric 3D head + 2D heatmap head
 (`metro_pose3d_tpu/models/metro.py`).
 
-    crops [B,S,S,3] -> ResNet /16 dilated -> feats [B,C,h,w]
+    crops [B,S,S,3] -> trunk /16 dilated -> feats [B,C,h,w]
     -> 1x1 conv -> [B,h,w,J*D] -> reshape [B,h,w,D,J]    (3D head)
     -> 1x1 conv -> [B,h,w,J]                             (2D head)
+
+The trunk is the ResNet that `model.backbone` names (`models/resnet.py`) or
+an EfficientNetV2 (`efficientnetv2-l`, `efficientnetv2-tiny`:
+`models/efficientnet.py`, eval-mode serving only).
 
 `model_class="twofive"` is the 2.5D baseline: the same backbone and heads,
 decoded as crop pixels (x, y) and metric depth (z) by `decode_twofive`.
@@ -14,11 +18,29 @@ import torch
 import torch.nn as nn
 
 from metro_pose3d_tpu_torch.config import ModelConfig
-from metro_pose3d_tpu_torch.models.resnet import ResNet, _make_conv, parse_quantize_extras
+from metro_pose3d_tpu_torch.models import efficientnet
+from metro_pose3d_tpu_torch.models.quantize import check_backbone
+from metro_pose3d_tpu_torch.models.resnet import (
+    RESNET_DEPTHS, ResNet, _make_conv, parse_quantize_extras,
+)
 from metro_pose3d_tpu_torch.ops.decode import heatmap_to_image, heatmap_to_metric
 from metro_pose3d_tpu_torch.ops.soft_argmax import soft_argmax_2d, soft_argmax_3d
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def build_trunk(cfg: ModelConfig, dtype, train: bool) -> nn.Module:
+    """The trunk `cfg.backbone` names; an EfficientNetV2 refuses training and
+    `model.quantize`."""
+    if cfg.backbone in efficientnet.TRUNKS:
+        if train:
+            raise ValueError(efficientnet.NOT_TRAINABLE)
+        check_backbone(cfg)
+        return efficientnet.EfficientNetV2(cfg, dtype)
+    if cfg.backbone not in RESNET_DEPTHS:
+        raise ValueError(f"unknown backbone {cfg.backbone!r}; known: "
+                         f"{sorted(RESNET_DEPTHS) + sorted(efficientnet.TRUNKS)}")
+    return ResNet(cfg, dtype)
 
 
 class MetroModel(nn.Module):
@@ -26,7 +48,8 @@ class MetroModel(nn.Module):
     (`ModelConfig.at_phase`): the test stride by default, the train stride
     with `train=True`. The parameter tree is the same at either stride.
     Batch norm follows `.train()` / `.eval()`. With `model.quantize` it is the
-    int8 serving graph (`models/quantize.py`), which `train=True` refuses."""
+    int8 serving graph (`models/quantize.py`), which `train=True` refuses;
+    an EfficientNetV2 trunk refuses both."""
 
     def __init__(self, cfg: ModelConfig, train: bool = False):
         super().__init__()
@@ -39,7 +62,7 @@ class MetroModel(nn.Module):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r} not in {sorted(DTYPES)}")
         self.cfg = cfg
         self.dtype = DTYPES[cfg.compute_dtype]
-        self.backbone = ResNet(cfg, self.dtype)
+        self.backbone = build_trunk(cfg, self.dtype, train)
         c = self.backbone.out_channels
         # int8 1x1 heads under quantize_extras "heads", their input (the
         # features after bn_final and ReLU) calibrated like the block convs

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from metro_pose3d_tpu_torch.models.efficientnet import TRUNKS as EFFICIENTNET_TRUNKS
 from metro_pose3d_tpu_torch.models.resnet import BatchNorm, Conv
 from metro_pose3d_tpu_torch.ops.int8 import int8_conv, int8_elementwise
 from metro_pose3d_tpu_torch.utils.profiling import count, span
@@ -44,6 +45,16 @@ class BNAffine(BatchNorm):
     def affine(self):
         a = self.scale * torch.rsqrt(self.var + self.eps)
         return a, self.bias - a * self.mean
+
+
+def check_backbone(model_cfg) -> None:
+    """int8 serving covers the ResNet trunks: an EfficientNetV2 trunk (its
+    depthwise convs, squeeze-excitation gates and SiLU junctions have no int8
+    form here) with `model.quantize` raises."""
+    if model_cfg.quantize != "none" and model_cfg.backbone in EFFICIENTNET_TRUNKS:
+        raise ValueError(f"model.quantize={model_cfg.quantize!r} is not ported for the "
+                         f"EfficientNetV2 trunk {model_cfg.backbone!r}; it serves in bf16 or "
+                         "float32 (model.quantize='none')")
 
 
 def check_mode(mode: str) -> None:

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from metro_pose3d_tpu_torch.config import ModelConfig
 from metro_pose3d_tpu_torch.ops import bn as bn_op
+from metro_pose3d_tpu_torch.ops.dwconv import depthwise_conv
 from metro_pose3d_tpu_torch.ops.pool import stem_max_pool
 from metro_pose3d_tpu_torch.parallel import mesh
 
@@ -65,14 +66,21 @@ class Conv(nn.Module):
     `bias`, cast to the compute dtype in `forward`. Padding is XLA SAME,
     except that with `conv_padding` "torch" or "keras" a strided conv with
     k > 1 pads (k-1)//2 * dilation on both sides (`_conv_pad` in the JAX
-    package)."""
+    package). With `groups` = cin = cout > 1 (the depthwise conv of an
+    MBConv block, no bias) it runs `ops/dwconv.py::depthwise_conv`: the
+    port's kernel on CUDA, its plain twin on the CPU."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
-                 bias: bool = False, dtype=torch.float32, conv_padding: str = "same"):
+                 bias: bool = False, dtype=torch.float32, conv_padding: str = "same",
+                 groups: int = 1):
         super().__init__()
         self.k, self.stride, self.dilation, self.dtype = k, stride, dilation, dtype
+        if groups > 1 and (groups != cin or cin != cout or bias):
+            raise ValueError(f"a grouped conv is depthwise here (groups = cin = cout, no bias), "
+                             f"got groups {groups}, {cin} -> {cout}, bias {bias}")
+        self.groups = groups
         self.symmetric = conv_padding in ("torch", "keras") and stride > 1 and k > 1
-        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def pads(self, h: int, w: int):
@@ -83,9 +91,32 @@ class Conv(nn.Module):
         return (*_same_pads(h, self.k, self.stride, self.dilation),
                 *_same_pads(w, self.k, self.stride, self.dilation))
 
-    def forward(self, x):
-        weight = self.weight.to(self.dtype)
-        bias = None if self.bias is None else self.bias.to(self.dtype)
+    @staticmethod
+    def casts(convs) -> dict:
+        """{conv: (weight, bias)} of the dense convs `convs` (one compute
+        dtype) in that dtype, cast in one pass: a cat of their float32
+        parameters and one cast, the same bits as each conv's own. A trunk
+        of several hundred small convs (EfficientNetV2) casts so at each
+        forward, where a cast a parameter would take as many launches."""
+        dtypes = {m.dtype for m in convs}
+        if len(dtypes) != 1 or any(m.groups > 1 for m in convs):
+            raise ValueError(f"Conv.casts takes dense convs of one dtype, got {dtypes}")
+        params = [p for m in convs for p in (m.weight, m.bias) if p is not None]
+        flat = torch.cat([p.reshape(-1) for p in params]).to(dtypes.pop())
+        cast = iter([t.view(p.shape) for t, p in zip(flat.split([p.numel() for p in params]),
+                                                     params)])
+        return {m: (next(cast), None if m.bias is None else next(cast)) for m in convs}
+
+    def forward(self, x, cast=None):
+        """`cast`: (weight, bias) already in the compute dtype, where the
+        caller cast them with other convs' (`Conv.casts`)."""
+        if self.groups > 1:
+            return depthwise_conv(x, self.weight, self.stride, self.dilation,
+                                  self.pads(*x.shape[2:]))
+        if cast is None:
+            cast = self.weight.to(self.dtype), None if self.bias is None else self.bias.to(
+                self.dtype)
+        weight, bias = cast
         top, bottom, left, right = self.pads(*x.shape[2:])
         if (top, left) == (bottom, right):
             return F.conv2d(x, weight, bias, self.stride, (top, left), self.dilation)
@@ -115,8 +146,9 @@ class BatchNorm(nn.Module):
     stay the same on every rank, and ghost BN groups are groups of the
     global batch, as in the JAX package: a group may take rows of several
     ranks. Without a group no collective is issued.
-    `forward(x, relu=True)` applies F.relu to the result, in eval mode in
-    the same pass.
+    `forward(x, act=...)` applies the activation `act` to the result:
+    "none", "relu" (F.relu, the ResNet trunks) or "silu" (F.silu, the
+    EfficientNetV2 trunk), in eval mode in the same pass.
     """
 
     def __init__(self, c: int, eps: float, momentum: float = 0.99, group_size: int = 0,
@@ -128,13 +160,35 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x, relu: bool = False):
+    @staticmethod
+    def _multiplier(var, scale, eps: float):
+        return torch.rsqrt(var + eps) * scale
+
+    @staticmethod
+    def multipliers(norms) -> dict:
+        """{norm: rsqrt(var + eps) * scale} of the batch norms `norms` (one
+        eps), eval mode's multipliers, computed in one pass over their
+        concatenated vectors: the same bits as each module's own."""
+        eps = {m.eps for m in norms}
+        if len(eps) != 1:
+            raise ValueError(f"BatchNorm.multipliers takes batch norms of one eps, got {eps}")
+        mul = BatchNorm._multiplier(torch.cat([m.var for m in norms]),
+                                    torch.cat([m.scale for m in norms]), eps.pop())
+        return dict(zip(norms, mul.split([m.var.numel() for m in norms])))
+
+    def forward(self, x, act: str = "none", mul=None):
+        """`mul`: eval mode's multiplier, where the caller computed it with
+        other batch norms' (`BatchNorm.multipliers`)."""
         if not self.training:
             if x.dtype != self.dtype:
                 raise TypeError(f"eval batch norm takes its compute dtype {self.dtype}, got "
                                 f"{x.dtype}")
-            return bn_op.batch_norm_act(x, self.mean, self.var, self.scale, self.bias, self.eps,
-                                        relu)
+            if mul is None:
+                mul = self._multiplier(self.var, self.scale, self.eps)
+            return bn_op.batch_norm_act(x, self.mean, mul, self.bias, act)
+        if mul is not None:
+            raise ValueError("a multiplier is eval mode's; train mode computes the batch's")
+        bn_op.check_act(act)
         shape = (1, -1, 1, 1)
         xf = x.float()
         if self.group_size > 0:
@@ -148,8 +202,7 @@ class BatchNorm(nn.Module):
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)
             self.var.copy_(m * self.var + (1 - m) * var)
-        y = y.to(self.dtype)
-        return F.relu(y) if relu else y
+        return bn_op.activation(y.to(self.dtype), act)
 
     @staticmethod
     def _moments(xf):
@@ -297,7 +350,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         if self.preact:
-            h = self.bn_pre(x, relu=True)
+            h = self.bn_pre(x, act="relu")
             shortcut = self.proj(h) if self.change else _shortcut(x, self.strides)
             if self.fused and self.conv1.mode == "int8":  # not while calibrating
                 # quantize (QK2) -> conv1 with junction 1 in its epilogue ->
@@ -307,12 +360,12 @@ class Bottleneck(nn.Module):
                                            self.conv2)
                 h = self.conv2.requant_out(h, self.bn2.affine(), self.conv3)
                 return shortcut + self.conv3.forward_int8(h)
-            h = self.bn1(self.conv1(h), relu=True)
-            h = self.bn2(self.conv2(h), relu=True)
+            h = self.bn1(self.conv1(h), act="relu")
+            h = self.bn2(self.conv2(h), act="relu")
             return shortcut + self.conv3(h)
         shortcut = self.bn_proj(self.proj(x)) if self.change else _shortcut(x, self.strides)
-        h = self.bn1(self.conv1(x), relu=True)
-        h = self.bn2(self.conv2(h), relu=True)
+        h = self.bn1(self.conv1(x), act="relu")
+        h = self.bn2(self.conv2(h), act="relu")
         h = self.bn3(self.conv3(h))
         return F.relu(shortcut + h)
 
@@ -344,12 +397,12 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         if self.preact:
-            h = self.bn_pre(x, relu=True)
+            h = self.bn_pre(x, act="relu")
             shortcut = self.proj(h) if self.change else _shortcut(x, self.strides)
-            h = self.bn1(self.conv1(h), relu=True)
+            h = self.bn1(self.conv1(h), act="relu")
             return shortcut + self.conv2(h)
         shortcut = self.bn_proj(self.proj(x)) if self.change else _shortcut(x, self.strides)
-        h = self.bn1(self.conv1(x), relu=True)
+        h = self.bn1(self.conv1(x), act="relu")
         h = self.bn2(self.conv2(h))
         return F.relu(shortcut + h)
 
@@ -453,8 +506,8 @@ class ResNet(nn.Module):
     def forward(self, x):
         x = self.conv_stem(x.to(self.dtype))
         if not self.preact:
-            x = self.bn_stem(x, relu=True)
+            x = self.bn_stem(x, act="relu")
         x = stem_max_pool(x, self.pool_mode)
         for name in self.blocks:
             x = getattr(self, name)(x)
-        return self.bn_final(x, relu=True) if self.preact else x
+        return self.bn_final(x, act="relu") if self.preact else x

@@ -1,18 +1,21 @@
-"""Batch norm's inference affine and the ReLU after it, in one pass: a CUDA
-kernel (csrc/bn_act.cu) and its plain twin.
+"""Batch norm's inference affine and the activation after it, in one pass: a
+CUDA kernel (csrc/bn_act.cu) and its plain twin.
 
 Eval-mode batch norm (`models/resnet.py::BatchNorm`) computes, per channel c,
 
     mul = rsqrt(var + eps) * scale                      (on [C] vectors)
     y = ((float(x) - mean[c]) * mul[c] + bias[c]).to(dtype)
 
-and the ReLU after it, where the block has one, is F.relu(y). The twin,
+and the activation after it (`act`): "none", "relu" (F.relu(y), the ResNet
+trunks) or "silu" (F.silu(y), the EfficientNetV2 trunk). The twin,
 `bn_act_plain`, is that chain as PyTorch runs it, op by op. The kernel does
 the same float32 operations in the same order, each rounded (the library is
-built with `-fmad=false`), rounds once to the output type and clamps the
-rounded value at 0 as F.relu does: on the card it equals the twin bit for
-bit. `batch_norm_act` computes `mul` with PyTorch, as the module always
-did, and hands the rest to the twin on the CPU and to the kernel on CUDA.
+built with `-fmad=false`), rounds once to the output type and then clamps
+the rounded value at 0 as F.relu does, or applies F.silu's formula to it in
+float32 and rounds once more: on the card it equals the twin bit for bit
+where its `expf` and division are PyTorch's. The module computes `mul`
+with PyTorch, as it always did; `batch_norm_act` hands the rest to the
+twin on the CPU and to the kernel on CUDA.
 
 The kernel takes [N,C,H,W] in `torch.channels_last` memory format (the
 backbone's layout) or NCHW-contiguous, in float32 or bfloat16, and writes
@@ -33,17 +36,20 @@ from metro_pose3d_tpu_torch.utils.profiling import launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LAYOUTS = {"channels_last": 0, "nchw": 1}
+_ACTS = {"none": 0, "relu": 1, "silu": 2}  # the kernel's activation codes
+ACTIVATIONS = tuple(_ACTS)
+_ACT_FNS = {"none": lambda y: y, "relu": F.relu, "silu": F.silu}
 VARIANTS = ("vec16", "scalar")  # 16-byte vectors, or one element a step
-# kernel launches on CUDA tensors by (dtype, relu, variant), dtype "float32"
+# kernel launches on CUDA tensors by (dtype, act, variant), dtype "float32"
 # or "bfloat16"; `LAUNCHES` (the total) is a view of it
-KERNEL_LAUNCHES = {(str(d)[6:], relu, var): 0
-                   for d in _DTYPES for relu in (False, True) for var in VARIANTS}
+KERNEL_LAUNCHES = {(str(d)[6:], act, var): 0
+                   for d in _DTYPES for act in ACTIVATIONS for var in VARIANTS}
 
 
-def launches(dtype: str | None = None, relu: bool | None = None, var: str | None = None) -> int:
+def launches(dtype: str | None = None, act: str | None = None, var: str | None = None) -> int:
     """Launches counted in `KERNEL_LAUNCHES` that match every key given."""
-    return sum(n for (d, r, v), n in KERNEL_LAUNCHES.items()
-               if dtype in (None, d) and relu in (None, r) and var in (None, v))
+    return sum(n for (d, a, v), n in KERNEL_LAUNCHES.items()
+               if dtype in (None, d) and act in (None, a) and var in (None, v))
 
 
 def __getattr__(name: str):
@@ -57,14 +63,26 @@ def reset_launches() -> None:
     KERNEL_LAUNCHES.update(dict.fromkeys(KERNEL_LAUNCHES, 0))
 
 
+def check_act(act: str) -> str:
+    if act not in _ACTS:
+        raise ValueError(f"unknown batch norm activation {act!r}; valid: {ACTIVATIONS}")
+    return act
+
+
+def activation(y: torch.Tensor, act: str) -> torch.Tensor:
+    """F.relu or F.silu of y as `act` says ("none": y itself)."""
+    return _ACT_FNS[check_act(act)](y)
+
+
 def bn_act_plain(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
-                 relu: bool = False) -> torch.Tensor:
-    """The inference affine in float32, cast to x's dtype, then F.relu where
-    `relu` is set: the chain as PyTorch runs it, any device."""
+                 act: str = "none") -> torch.Tensor:
+    """The inference affine in float32, cast to x's dtype, then F.relu or
+    F.silu on that value as `act` says: the chain as PyTorch runs it, any
+    device."""
+    check_act(act)
     shape = (1, -1, 1, 1)
     y = (x.float() - mean.view(shape)) * mul.view(shape) + bias.view(shape)
-    y = y.to(x.dtype)
-    return F.relu(y) if relu else y
+    return activation(y.to(x.dtype), act)
 
 
 def layout(x: torch.Tensor) -> str:
@@ -109,9 +127,10 @@ def _check(x, mean, mul, bias) -> str:
 
 
 def bn_act_cuda(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
-                relu: bool = False, width: int | None = None) -> torch.Tensor:
+                act: str = "none", width: int | None = None) -> torch.Tensor:
     """Launch the kernel (csrc/bn_act.cu): y in x's dtype and layout;
     `width` (1 or the vector) overrides `vector_width`'s choice."""
+    check_act(act)
     kind = _check(x, mean, mul, bias)
     y = torch.empty_like(x)  # keeps x's dense layout
     allowed = vector_width(x, kind, x.data_ptr(), y.data_ptr())
@@ -127,21 +146,20 @@ def bn_act_cuda(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: to
             err = lib.metro_bn_act(
                 x.data_ptr(), y.data_ptr(), mean.contiguous().data_ptr(),
                 mul.contiguous().data_ptr(), bias.contiguous().data_ptr(), _DTYPES[x.dtype],
-                _LAYOUTS[kind], int(relu), vec, x.numel(), c, h * w,
+                _LAYOUTS[kind], _ACTS[act], vec, x.numel(), c, h * w,
                 torch.cuda.current_stream().cuda_stream)
         build.check(err, "metro_bn_act")
-        KERNEL_LAUNCHES[str(x.dtype)[6:], bool(relu), "scalar" if vec == 1 else "vec16"] += 1
+        KERNEL_LAUNCHES[str(x.dtype)[6:], act, "scalar" if vec == 1 else "vec16"] += 1
     return y
 
 
-def batch_norm_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, scale: torch.Tensor,
-                   bias: torch.Tensor, eps: float, relu: bool = False) -> torch.Tensor:
-    """Eval-mode batch norm of x with the running statistics (`mean`,
-    `var`) and the affine (`scale`, `bias`), in x's dtype, and F.relu after
-    it where `relu` is set: the twin on the CPU, the kernel on CUDA."""
-    mul = torch.rsqrt(var + eps) * scale
+def batch_norm_act(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
+                   act: str = "none") -> torch.Tensor:
+    """Eval-mode batch norm of x with the running `mean`, the multiplier
+    `mul` = rsqrt(var + eps) * scale and `bias`, in x's dtype, and the
+    activation `act` after it: the twin on the CPU, the kernel on CUDA."""
     if x.device.type == "cpu":
-        return bn_act_plain(x, mean, mul, bias, relu)
+        return bn_act_plain(x, mean, mul, bias, act)
     if not x.is_cuda:
         raise ValueError(f"batch_norm_act: unsupported device {x.device}")
-    return bn_act_cuda(x, mean, mul, bias, relu)
+    return bn_act_cuda(x, mean, mul, bias, act)

@@ -21,6 +21,7 @@ import math
 import torch
 
 from metro_pose3d_tpu_torch.config import Config
+from metro_pose3d_tpu_torch.models import efficientnet
 from metro_pose3d_tpu_torch.models.losses import compute_losses
 from metro_pose3d_tpu_torch.parallel import mesh
 from metro_pose3d_tpu_torch.pipeline.device import device_augment
@@ -92,7 +93,10 @@ def make_train_step(cfg: Config, root_index: int = 0, occluder_bank=None,
     global batch, the gradients are averaged over the ranks in one
     collective before the norm and the clip (`parallel/mesh.py`), and Adam
     takes the same step on every rank. The first call checks that the
-    ranks start from the same state. The augmentation stays per rank."""
+    ranks start from the same state. The augmentation stays per rank.
+    An EfficientNetV2 trunk raises ValueError: training is not ported for it."""
+    if cfg.model.backbone in efficientnet.TRUNKS:
+        raise ValueError(efficientnet.NOT_TRAINABLE)
     proc_side = cfg.model.proc_side
     clip = cfg.train.grad_clip_norm
     sched = make_lr_schedule(cfg)

@@ -59,6 +59,7 @@ from torch.autograd import profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
 MARKER_KERNEL = "spin_kernel"  # `torch.cuda._sleep`'s kernel, the clock anchor
+END_MARGIN_S = 0.02  # host wait between the last marker and the profiler's stop
 # the profiler's label of a span: `record_function`'s C++ core without the
 # dispatcher's round trip, 0.5 us a span on the card's host against 7-8 us;
 # a trace with CPU activity shows it as an op
@@ -141,9 +142,15 @@ class Recorder:
 
     def end(self) -> None:
         """The profiler stops: a second anchor, so that a reader maps the
-        host clock onto the trace's by offset and rate."""
+        host clock onto the trace's by offset and rate. The profiler keeps
+        only device activity that ends before its stop time, and the
+        trace's clock may run ahead of the host's, so the stop waits
+        `END_MARGIN_S` after the marker, outside the traced window (which
+        ends with the marker)."""
         if not self.fresh and len(self.anchors) == 1:
             self._anchor()
+            if self.anchors[1:]:
+                time.sleep(END_MARGIN_S)
 
     def seq(self) -> int:
         """The open root span's number in the session (-1 outside any)."""

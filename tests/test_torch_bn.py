@@ -1,8 +1,9 @@
-"""Eval-mode batch norm and its ReLU (`metro_pose3d_tpu_torch/ops/bn.py`) on
-the CPU: the twin and the model's batch norm against the float32 chain that
-`BatchNorm` ran before the kernel, the train path with `relu`, whole models,
-the call sites and the wrapper's checks. The kernel itself is held to the
-twin on the card (tests/test_torch_cuda.py)."""
+"""Eval-mode batch norm and its activation (`metro_pose3d_tpu_torch/ops/bn.py`)
+on the CPU: the twin and the model's batch norm against the float32 chain
+that `BatchNorm` ran before the kernel (F.relu or F.silu after it), the train
+path with an activation, whole models, the call sites and the wrapper's
+checks. The kernel itself is held to the twin on the card
+(tests/test_torch_cuda.py)."""
 import copy
 
 import numpy as np
@@ -17,14 +18,18 @@ from metro_pose3d_tpu_torch.models.quantize import QuantConv
 from metro_pose3d_tpu_torch.ops import bn
 
 
-def _old_eval(x, mean, var, scale, bias, eps, dtype, relu):
-    """`BatchNorm`'s eval path before the kernel, then F.relu at the call site."""
+ACT_FNS = {"none": lambda y: y, "relu": F.relu, "silu": F.silu}
+ACT_IDS = {"none": "affine", "relu": "relu", "silu": "silu"}
+
+
+def _old_eval(x, mean, var, scale, bias, eps, dtype, act):
+    """`BatchNorm`'s eval path before the kernel, then the activation (F.relu
+    or F.silu) at the call site."""
     shape = (1, -1, 1, 1)
     xf = x.float()
     mul = torch.rsqrt(var + eps) * scale
     y = (xf - mean.view(shape)) * mul.view(shape) + bias.view(shape)
-    y = y.to(dtype)
-    return F.relu(y) if relu else y
+    return ACT_FNS[act](y.to(dtype))
 
 
 def _old_train(mod, x):
@@ -71,28 +76,51 @@ def _case(c, dtype, layout, seed=0):
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-@pytest.mark.parametrize("relu", [False, True], ids=["affine", "relu"])
+@pytest.mark.parametrize("act", list(ACT_IDS), ids=list(ACT_IDS.values()))
 @pytest.mark.parametrize("c", [8, 64, 2048])
 @pytest.mark.parametrize("layout", ["channels_last", "nchw"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_twin_and_eval_batch_norm_equal_the_old_chain(dtype, layout, c, relu):
+def test_twin_and_eval_batch_norm_equal_the_old_chain(dtype, layout, c, act):
     x, mean, var, scale, bias = _case(c, DTYPES[dtype], layout)
-    want = _old_eval(x, mean, var, scale, bias, 1e-3, DTYPES[dtype], relu)
+    want = _old_eval(x, mean, var, scale, bias, 1e-3, DTYPES[dtype], act)
     mul = torch.rsqrt(var + 1e-3) * scale
-    assert _same_bits(bn.bn_act_plain(x, mean, mul, bias, relu), want)
-    assert _same_bits(bn.batch_norm_act(x, mean, var, scale, bias, 1e-3, relu), want)
+    assert _same_bits(bn.bn_act_plain(x, mean, mul, bias, act), want)
+    assert _same_bits(bn.batch_norm_act(x, mean, mul, bias, act), want)
     mod = resnet.BatchNorm(c, 1e-3, dtype=DTYPES[dtype]).eval()
     with torch.no_grad():
         for name, t in (("mean", mean), ("var", var), ("scale", scale), ("bias", bias)):
             getattr(mod, name).copy_(t)
-        assert _same_bits(mod(x, relu=relu), want)
+        assert _same_bits(mod(x, act=act), want)
     assert bool(torch.isnan(want).any()) and bool((want == float("inf")).any())
     assert bn.LAUNCHES == 0  # nothing launches on the CPU
 
 
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_train_batch_norm_with_relu_is_relu_of_the_old_train_path(dtype):
-    """Value, gradient of x and of the affine, and the running statistics."""
+def test_silu_twin_keeps_the_special_values():
+    """F.silu on the rounded affine: NaN stays NaN, +inf stays +inf, -inf
+    gives NaN (-inf / inf), -0.0 stays -0.0, and a large negative value
+    goes to -0.0."""
+    x = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0, -200.0, 3.0])
+    x = x.view(1, 6, 1, 1)
+    zero, one = torch.zeros(6), torch.ones(6)
+    for dtype in DTYPES.values():
+        y = bn.bn_act_plain(x.to(dtype), zero, one, zero * -1.0, "silu").float().view(-1)
+        assert torch.isnan(y[0]) and y[1] == float("inf") and torch.isnan(y[2])
+        assert y[3] == 0 and torch.signbit(y[3]) and y[4] == 0 and torch.signbit(y[4])
+        assert y[5] == F.silu(torch.tensor(3.0).to(dtype)).float()
+
+
+def test_an_unknown_activation_raises():
+    x, c = torch.randn(2, 8, 3, 3), torch.zeros(8)
+    with pytest.raises(ValueError, match="unknown batch norm activation"):
+        bn.bn_act_plain(x, c, c, c, "gelu")
+    with pytest.raises(ValueError, match="unknown batch norm activation"):
+        resnet.BatchNorm(8, 1e-3).train()(x, act=True)
+
+
+def _train_case(dtype, act):
+    """Value, gradient of x and of the affine, and the running statistics of
+    the train path with `act`, against the old train path with the
+    activation after it."""
     torch.manual_seed(1)
     mod = resnet.BatchNorm(16, 1e-3, dtype=DTYPES[dtype]).train()
     with torch.no_grad():
@@ -101,9 +129,9 @@ def test_train_batch_norm_with_relu_is_relu_of_the_old_train_path(dtype):
     x = torch.randn(4, 16, 6, 5).to(DTYPES[dtype]).contiguous(memory_format=torch.channels_last)
     ref = copy.deepcopy(mod)
     xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
-    got = mod(xa, relu=True)
+    got = mod(xa, act=act)
     y, ra_mean, ra_var = _old_train(ref, xb)
-    want = F.relu(y)
+    want = ACT_FNS[act](y)
     assert _same_bits(got, want)
     g = torch.randn(want.shape).to(want.dtype)
     got.backward(g)
@@ -114,15 +142,25 @@ def test_train_batch_norm_with_relu_is_relu_of_the_old_train_path(dtype):
     assert torch.equal(mod.mean, ra_mean) and torch.equal(mod.var, ra_var)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_train_batch_norm_with_relu_is_relu_of_the_old_train_path(dtype):
+    _train_case(dtype, "relu")
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_train_batch_norm_with_silu_is_silu_of_the_old_train_path(dtype):
+    _train_case(dtype, "silu")
+
+
 @pytest.mark.parametrize("group_size", [0, 2])
 def test_train_relu_flag_is_f_relu_of_the_flagless_call(group_size):
-    """`relu=True` in train mode, ghost BN included, is F.relu after it."""
+    """`act="relu"` in train mode, ghost BN included, is F.relu after it."""
     torch.manual_seed(2)
     mod = resnet.BatchNorm(8, 1e-3, group_size=group_size).train()
     ref = copy.deepcopy(mod)
     x = torch.randn(4, 8, 3, 3)
     xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
-    got, want = mod(xa, relu=True), F.relu(ref(xb))
+    got, want = mod(xa, act="relu"), F.relu(ref(xb))
     assert torch.equal(got, want)
     got.sum().backward()
     want.sum().backward()
@@ -130,9 +168,11 @@ def test_train_relu_flag_is_f_relu_of_the_flagless_call(group_size):
     assert torch.equal(mod.mean, ref.mean) and torch.equal(mod.var, ref.var)
 
 
-def _old_forward(self, x, relu=False):
+def _old_forward(self, x, act="none", mul=None):
+    """The chain before the kernel, its multiplier computed from the module's
+    own vectors (a `mul` the trunk derived for it is not used)."""
     assert not self.training
-    return _old_eval(x, self.mean, self.var, self.scale, self.bias, self.eps, self.dtype, relu)
+    return _old_eval(x, self.mean, self.var, self.scale, self.bias, self.eps, self.dtype, act)
 
 
 MODELS = {
@@ -141,6 +181,8 @@ MODELS = {
                      "model.compute_dtype": "float32", "model.preactivation": "false",
                      "model.conv_padding": "torch"},
     "resnet50_bf16": {"model.proc_side": "64"},
+    "effv2_tiny_bf16": {"model.backbone": "efficientnetv2-tiny", "model.proc_side": "64",
+                        "model.depth": "4"},
 }
 
 
@@ -167,22 +209,25 @@ def test_eval_model_gives_the_outputs_of_the_old_chain(name, monkeypatch):
         assert _same_bits(g, w)
 
 
-CALL_COUNTS = {  # overrides -> (batch norms a forward, of them with the ReLU)
-    "resnet50_v2": ({}, (49, 49)),
-    "resnet50_v2_int8": ({"model.quantize": "int8"}, (17, 17)),
+CALL_COUNTS = {  # overrides -> (batch norms a forward, of them with the ReLU, with the SiLU)
+    "resnet50_v2": ({}, (49, 49, 0)),
+    "resnet50_v2_int8": ({"model.quantize": "int8"}, (17, 17, 0)),
     "resnet50_v15": ({"model.preactivation": "false", "model.conv_padding": "torch",
-                      "model.stride_position": "first"}, (53, 33)),
-    "resnet18_v2": ({"model.backbone": "resnet18"}, (17, 17)),
+                      "model.stride_position": "first"}, (53, 33, 0)),
+    "resnet18_v2": ({"model.backbone": "resnet18"}, (17, 17, 0)),
+    "effv2_l": ({"model.backbone": "efficientnetv2-l"}, (217, 0, 142)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(CALL_COUNTS))
 def test_every_batch_norm_before_a_relu_takes_it_in_the_same_call(name, monkeypatch):
     """One eval forward calls `batch_norm_act` once a batch norm, with
-    `relu` wherever F.relu followed it: all 49 of R50 v2 (16 bn_pre, bn1,
+    "relu" wherever F.relu followed it: all 49 of R50 v2 (16 bn_pre, bn1,
     bn2, bn_final), the 17 of int8 R50 v2 whose bn1 and bn2 are folded into
     QK1's junctions; in v1.5 the 33 of the stem and each unit's bn1 and
-    bn2, and not bn3 or bn_proj, whose ReLU follows the residual add."""
+    bn2, and not bn3 or bn_proj, whose ReLU follows the residual add. In
+    EfficientNetV2-L, "silu" in 142 of 217: all but the 75 after a block's
+    projecting 1x1 conv (14 Fused-MBConv and 61 MBConv blocks)."""
     over, want = CALL_COUNTS[name]
     cfg = apply_overrides(Config(), {"model.proc_side": "64", **over})
     model = init_metro_model(cfg.model, 0, "cpu").eval()
@@ -193,13 +238,13 @@ def test_every_batch_norm_before_a_relu_takes_it_in_the_same_call(name, monkeypa
     plain = bn.batch_norm_act
 
     def spy(*args, **kw):
-        calls.append(args[6])
+        calls.append(args[4])
         return plain(*args, **kw)
 
     monkeypatch.setattr(bn, "batch_norm_act", spy)
     with torch.no_grad():
         model(torch.zeros(1, 64, 64, 3))
-    assert (len(calls), sum(calls)) == want
+    assert (len(calls), calls.count("relu"), calls.count("silu")) == want
 
 
 def test_the_wrapper_refuses_what_the_kernel_does_not_take():
@@ -218,7 +263,7 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         bn.bn_act_cuda(x, c, c, c)
     with pytest.raises(ValueError, match="unsupported device"):
-        bn.batch_norm_act(x.to("meta"), c, c + 1, c, c, 1e-3)
+        bn.batch_norm_act(x.to("meta"), c, c, c)
 
 
 @pytest.mark.parametrize("x_dtype,bn_dtype", [(torch.float32, torch.bfloat16),
@@ -231,7 +276,7 @@ def test_eval_batch_norm_refuses_an_input_off_its_compute_dtype(x_dtype, bn_dtyp
     with pytest.raises(TypeError, match="compute dtype"):
         mod(x)
     with pytest.raises(TypeError, match="compute dtype"):
-        mod(x, relu=True)
+        mod(x, act="relu")
 
 
 @pytest.mark.parametrize("shape,dtype,memory_format,want", [

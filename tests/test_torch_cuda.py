@@ -18,7 +18,7 @@ from metro_pose3d_tpu_torch.geom.joints import H36M_17
 from metro_pose3d_tpu_torch.init import init_metro_model
 from metro_pose3d_tpu_torch.models.resnet import BatchNorm
 from metro_pose3d_tpu_torch.ops import bn, pool, warp
-from test_torch_bn import DTYPES, _case
+from test_torch_bn import DTYPES, _bits, _case
 
 pytestmark = pytest.mark.cuda
 
@@ -899,54 +899,91 @@ def test_nvjpeg_refuses_what_is_not_a_jpeg(nvjpeg):
         nvjpeg.decode_jpeg_batch([data, b"not a jpeg"], threads=2)
 
 
-# ---------------------------------------- eval batch norm and its ReLU (ops/bn.py)
+# ---------------------------------------- eval batch norm and its activation (ops/bn.py)
 
 
-def _r50_bn_shapes(cuda):
-    """[(C, H, W, relu)] of the batch norms of a Config() forward (R50 v2 @ 256)."""
-    model = init_metro_model(Config().model, 0, cuda).eval()
+def _bn_shapes(cfg, cuda):
+    """[(C, H, W, act)] of the batch norms of the config's eval forward of one
+    crop."""
+    model = init_metro_model(cfg.model, 0, cuda).eval()
     shapes = []
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.register_forward_pre_hook(
-                lambda _, args, kw: shapes.append((*args[0].shape[1:], kw.get("relu", False))),
+                lambda _, args, kw: shapes.append((*args[0].shape[1:], kw.get("act", "none"))),
                 with_kwargs=True)
+    side = cfg.model.proc_side
     with torch.no_grad():
-        model(torch.zeros(1, 256, 256, 3, device=cuda))
+        model(torch.zeros(1, side, side, 3, device=cuda))
     return shapes
+
+
+def _r50_bn_shapes(cuda):
+    """[(C, H, W, act)] of the batch norms of a Config() forward (R50 v2 @ 256)."""
+    return _bn_shapes(Config(), cuda)
+
+
+def _bn_path_inputs(gen, cuda, c, h, w):
+    """A bf16 channels_last [128, c, h, w] input (64 crops with flip TTA) and
+    a channel's mean, mul and bias."""
+    x = (torch.randn((128, c, h, w), generator=gen, device=cuda) * 2).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    mean, scale, bias = (torch.randn(c, generator=gen, device=cuda) for _ in range(3))
+    mul = torch.rsqrt(torch.rand(c, generator=gen, device=cuda) + 0.05) * scale
+    return x, mean, mul, bias
 
 
 def test_bn_kernel_bit_exact_at_the_r50_path_shapes(cuda):
     """The 49 batch norms of the bf16 serving forward at 128 rows (64 crops,
     flip TTA), each with and without the ReLU, in the vec16 variant."""
     shapes = _r50_bn_shapes(cuda)
-    assert len(shapes) == 49 and all(relu for *_, relu in shapes)
+    assert len(shapes) == 49 and all(act == "relu" for *_, act in shapes)
     gen = torch.Generator(device=cuda).manual_seed(0)
     bn.reset_launches()
     for c, h, w, _ in shapes:
-        x = (torch.randn((128, c, h, w), generator=gen, device=cuda) * 2).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        mean, scale, bias = (torch.randn(c, generator=gen, device=cuda) for _ in range(3))
-        mul = torch.rsqrt(torch.rand(c, generator=gen, device=cuda) + 0.05) * scale
-        for relu in (False, True):
-            assert _same_bits(bn.bn_act_cuda(x, mean, mul, bias, relu),
-                              bn.bn_act_plain(x, mean, mul, bias, relu)), (c, h, w, relu)
+        x, mean, mul, bias = _bn_path_inputs(gen, cuda, c, h, w)
+        for act in ("none", "relu"):
+            assert _same_bits(bn.bn_act_cuda(x, mean, mul, bias, act),
+                              bn.bn_act_plain(x, mean, mul, bias, act)), (c, h, w, act)
     assert bn.launches("bfloat16", var="vec16") == bn.LAUNCHES == 98
 
 
+def test_bn_kernel_bit_exact_at_the_effv2l_path_shapes(cuda):
+    """The 217 batch norms of EfficientNetV2-L's bf16 serving forward at 128
+    rows, each with its own activation (142 SiLU, 75 none), in the vec16
+    variant: the kernel's bits are the twin's (torch's F.silu on the card)."""
+    cfg = apply_overrides(Config(), {"model.backbone": "efficientnetv2-l"})
+    shapes = _bn_shapes(cfg, cuda)
+    acts = [act for *_, act in shapes]
+    assert (len(shapes), acts.count("silu"), acts.count("none")) == (217, 142, 75)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    bn.reset_launches()
+    differing = total = 0
+    for c, h, w, act in shapes:
+        x, mean, mul, bias = _bn_path_inputs(gen, cuda, c, h, w)
+        got = bn.bn_act_cuda(x, mean, mul, bias, act)
+        want = bn.bn_act_plain(x, mean, mul, bias, act)
+        differing += int((_bits(got) != _bits(want)).sum())
+        total += got.numel()
+    print(f"bn_act at the EfficientNetV2-L path shapes: {differing} of {total} elements differ")
+    assert differing == 0
+    assert bn.launches("bfloat16", "silu", "vec16") == 142
+    assert bn.launches("bfloat16", "none", "vec16") == 75 == bn.LAUNCHES - 142
+
+
 @pytest.mark.parametrize("width", [None, 1], ids=["auto", "scalar"])
-@pytest.mark.parametrize("relu", [False, True], ids=["affine", "relu"])
+@pytest.mark.parametrize("act", ["none", "relu", "silu"], ids=["affine", "relu", "silu"])
 @pytest.mark.parametrize("c", [8, 64, 2048])
 @pytest.mark.parametrize("layout", ["channels_last", "nchw"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_bn_kernel_bit_exact_at_the_cpu_cases(cuda, dtype, layout, c, relu, width):
+def test_bn_kernel_bit_exact_at_the_cpu_cases(cuda, dtype, layout, c, act, width):
     """tests/test_torch_bn.py's cases (odd N*H*W; NaN, +-inf and -0.0, a
     channel that takes -0.0 to -0.0) on the card: the kernel's bits, NaN and
     the sign of zero included, are the twin's."""
     x, mean, var, scale, bias = (t.to(cuda) for t in _case(c, DTYPES[dtype], layout))
     mul = torch.rsqrt(var + 1e-3) * scale
-    got = bn.bn_act_cuda(x, mean, mul, bias, relu, width)
-    assert _same_bits(got, bn.bn_act_plain(x, mean, mul, bias, relu))
+    got = bn.bn_act_cuda(x, mean, mul, bias, act, width)
+    assert _same_bits(got, bn.bn_act_plain(x, mean, mul, bias, act))
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -956,11 +993,11 @@ def test_bn_kernel_takes_unaligned_tensors_in_the_scalar_variant(cuda, dtype):
     assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 16
     mean, mul, bias = (torch.randn(64, device=cuda) for _ in range(3))
     bn.reset_launches()
-    got = bn.bn_act_cuda(x, mean, mul, bias, True)
+    got = bn.bn_act_cuda(x, mean, mul, bias, "relu")
     assert bn.launches(var="scalar") == 1
-    assert _same_bits(got, bn.bn_act_plain(x, mean, mul, bias, True))
+    assert _same_bits(got, bn.bn_act_plain(x, mean, mul, bias, "relu"))
     with pytest.raises(ValueError, match="does not fit"):
-        bn.bn_act_cuda(x, mean, mul, bias, True, width=16 // x.element_size())
+        bn.bn_act_cuda(x, mean, mul, bias, "relu", width=16 // x.element_size())
 
 
 def test_bn_kernel_refuses_a_gradient(cuda):
@@ -972,7 +1009,7 @@ def test_bn_kernel_refuses_a_gradient(cuda):
     with pytest.raises(RuntimeError, match="no backward"):
         mod(x)  # its scale and bias need a gradient
     with torch.no_grad():
-        assert mod(x, relu=True).shape == x.shape
+        assert mod(x, act="relu").shape == x.shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -982,8 +1019,8 @@ def test_bn_kernel_counts_no_launch_for_an_empty_tensor(cuda, dtype):
         memory_format=torch.channels_last)
     c = torch.zeros(64, device=cuda)
     bn.reset_launches()
-    for relu in (False, True):
-        y = bn.bn_act_cuda(x, c, c, c, relu)
+    for act in bn.ACTIVATIONS:
+        y = bn.bn_act_cuda(x, c, c, c, act)
         assert y.shape == x.shape and y.dtype == dtype
         assert y.is_contiguous(memory_format=torch.channels_last)
     assert bn.LAUNCHES == 0
@@ -1014,13 +1051,151 @@ def test_serving_with_the_bn_kernel_equals_the_twin_chain(cuda, quantize, monkey
     per_forward = {"none": 49, "int8": 17}[quantize]
     bn.reset_launches()
     got = [est.predict_crops(crops, intr)]
-    assert bn.LAUNCHES == bn.launches(relu=True, var="vec16") == per_forward
+    assert bn.LAUNCHES == bn.launches(act="relu", var="vec16") == per_forward
     got.append(est.predict_tiles(tiles))
     assert bn.LAUNCHES == 2 * per_forward
-    monkeypatch.setattr(bn, "bn_act_cuda", lambda x, mean, mul, bias, relu=False:
-                        bn.bn_act_plain(x, mean, mul, bias, relu))
+    monkeypatch.setattr(bn, "bn_act_cuda", lambda x, mean, mul, bias, act="none":
+                        bn.bn_act_plain(x, mean, mul, bias, act))
     want = [est.predict_crops(crops, intr), est.predict_tiles(tiles)]
     assert bn.LAUNCHES == 2 * per_forward
     for g, w in zip(got, want):
         for key in w:
             assert torch.equal(g[key], w[key]), key
+
+
+def test_effv2l_serving_with_the_bn_kernel_equals_the_twin_chain(cuda, monkeypatch):
+    """EfficientNetV2-L's `predict_crops` and `predict_tiles` at 256 px (bf16,
+    TTA, B = 64): 217 batch norm launches a forward, 142 of them with the
+    SiLU, and 61 depthwise conv launches; the outputs of the same calls with
+    both kernels' twins on the card, bit for bit."""
+    from metro_pose3d_tpu_torch.ops import dwconv
+
+    cfg = apply_overrides(Config(), {"model.backbone": "efficientnetv2-l",
+                                     "model.bn_epsilon": "0.001", "model.bn_momentum": "0.9"})
+    model = init_metro_model(cfg.model, 11, cuda)
+    rng = np.random.RandomState(11)
+    est = PoseEstimator(cfg, model, H36M_17, flip_tta=True, reconstruct=True)
+    b = 64
+    crops = rng.randint(0, 256, (b, 256, 256, 3)).astype(np.uint8)
+    intr = np.tile(np.array([[900.0, 0, 127.5], [0, 900.0, 127.5], [0, 0, 1]], np.float32),
+                   (b, 1, 1))
+    h, k, _ = _params(rng, b, 512, 256)
+    tiles = {"source": rng.randint(0, 256, (b, 512, 512, 3)).astype(np.uint8),
+             "warp_h": h, "warp_k": k, "warp_dist": torch.zeros(b, 5), "intrinsics": intr}
+    bn.reset_launches()
+    dwconv.reset_launches()
+    got = [est.predict_crops(crops, intr)]
+    assert bn.LAUNCHES == 217 and bn.launches(act="silu", var="vec16") == 142
+    assert dwconv.LAUNCHES == dwconv.launches("bfloat16", "vec16") == 61
+    got.append(est.predict_tiles(tiles))
+    assert (bn.LAUNCHES, dwconv.LAUNCHES) == (2 * 217, 2 * 61)
+    monkeypatch.setattr(bn, "bn_act_cuda", lambda x, mean, mul, bias, act="none":
+                        bn.bn_act_plain(x, mean, mul, bias, act))
+    monkeypatch.setattr(dwconv, "depthwise_conv_cuda", dwconv.depthwise_conv_plain)
+    want = [est.predict_crops(crops, intr), est.predict_tiles(tiles)]
+    assert (bn.LAUNCHES, dwconv.LAUNCHES) == (2 * 217, 2 * 61)
+    for g, w in zip(got, want):
+        for key in w:
+            assert torch.isfinite(g[key]).all(), key
+            assert torch.equal(g[key], w[key]), key
+
+
+def test_effv2_aot_compile_replays_the_eager_bits(cuda):
+    """`export.aot_compile` captures the EfficientNetV2 crop-in TTA predict
+    (the tiny trunk, B = 4) as one CUDA graph; a replay gives the eager
+    call's bits and counts one replay's bn_act launches."""
+    from metro_pose3d_tpu_torch.export import aot_compile
+
+    cfg = apply_overrides(Config(), {"model.backbone": "efficientnetv2-tiny",
+                                     "model.proc_side": "64", "model.depth": "4"})
+    model = init_metro_model(cfg.model, 5, cuda)
+    fn = make_predict_fn(cfg, np.arange(17), root_index=0, flip_tta=True)
+    intr = torch.tensor([[90.0, 0, 31.5], [0, 90.0, 31.5], [0, 0, 1]]).expand(4, 3, 3).contiguous()
+    compiled = aot_compile(fn, model, 4, 64)
+    crops = torch.from_numpy(np.random.RandomState(5).randint(0, 256, (4, 64, 64, 3)).astype(
+        np.uint8)).to(cuda)
+    bn.reset_launches()
+    got = compiled(model, crops, intr)
+    per_replay = bn.LAUNCHES
+    want = fn(model, crops, intr.to(cuda))
+    assert per_replay == bn.LAUNCHES - per_replay == 29  # the tiny trunk's batch norms
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+# ---------------------------------------- the depthwise conv (ops/dwconv.py)
+
+
+def test_dwconv_kernel_bit_exact_at_the_effv2l_path_shapes(cuda):
+    """The 61 depthwise convs of EfficientNetV2-L's bf16 serving forward at
+    128 rows, in the vec16 variant: the kernel's bits are the twin's."""
+    from metro_pose3d_tpu_torch.models.efficientnet import MBConv
+    from metro_pose3d_tpu_torch.ops import dwconv
+
+    cfg = apply_overrides(Config(), {"model.backbone": "efficientnetv2-l"})
+    model = init_metro_model(cfg.model, 0, cuda).eval()
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, MBConv):
+            m.conv2.register_forward_pre_hook(
+                lambda mod, args: shapes.append((mod, tuple(args[0].shape[1:]))))
+    with torch.no_grad():
+        model(torch.zeros(1, 256, 256, 3, device=cuda))
+    assert len(shapes) == 61
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    dwconv.reset_launches()
+    for conv, (c, h, w) in shapes:
+        x = (torch.randn((128, c, h, w), generator=gen, device=cuda) * 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        weight = torch.randn((c, 1, 3, 3), generator=gen, device=cuda) * 0.4
+        pads = conv.pads(h, w)
+        got = dwconv.depthwise_conv_cuda(x, weight, conv.stride, conv.dilation, pads)
+        want = dwconv.depthwise_conv_plain(x, weight, conv.stride, conv.dilation, pads)
+        assert _same_bits(got, want), (c, h, w, conv.stride, conv.dilation)
+    assert dwconv.launches("bfloat16", "vec16") == dwconv.LAUNCHES == 61
+
+
+@pytest.mark.parametrize("width", [None, 1], ids=["auto", "scalar"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_dwconv_kernel_bit_exact_at_the_cpu_cases(cuda, dtype, width):
+    """tests/test_torch_dwconv.py's cases (odd sides, stride 2's uneven pad,
+    dilation 2, C = 5; NaN, +-inf and -0.0 in x) on the card."""
+    from metro_pose3d_tpu_torch.ops import dwconv
+    from test_torch_dwconv import CASES, case
+
+    for c, h, w, k, stride, dil in CASES:
+        x, weight, pads = case(c, h, w, k, stride, dil, DTYPES[dtype])
+        x, weight = x.to(cuda), weight.to(cuda)
+        vec = dwconv.vector_width(x, 0)
+        got = dwconv.depthwise_conv_cuda(x, weight, stride, dil, pads,
+                                         width if vec > 1 else None)
+        want = dwconv.depthwise_conv_plain(x, weight, stride, dil, pads)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert _same_bits(got.contiguous(), want.contiguous()), (c, h, w, k, stride, dil)
+
+
+def test_dwconv_kernel_takes_unaligned_tensors_and_refuses_the_rest(cuda):
+    from metro_pose3d_tpu_torch.ops import dwconv
+
+    base = torch.randn(1 + 2 * 9 * 9 * 16, device=cuda).to(torch.bfloat16)
+    x = base[1:].view(2, 9, 9, 16).permute(0, 3, 1, 2)  # channels_last, 2 bytes off
+    assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 16
+    weight = torch.randn(16, 1, 3, 3, device=cuda)
+    dwconv.reset_launches()
+    got = dwconv.depthwise_conv_cuda(x, weight, 1, 1, (1, 1, 1, 1))
+    assert dwconv.launches(var="scalar") == 1
+    assert _same_bits(got, dwconv.depthwise_conv_plain(x, weight, 1, 1, (1, 1, 1, 1)))
+    with pytest.raises(ValueError, match="does not fit"):
+        dwconv.depthwise_conv_cuda(x, weight, 1, 1, (1, 1, 1, 1), width=8)
+    with pytest.raises(ValueError, match="channels_last"):
+        dwconv.depthwise_conv_cuda(x.contiguous(), weight, 1, 1, (1, 1, 1, 1))
+    with pytest.raises(ValueError, match="k = 3"):
+        dwconv.depthwise_conv_cuda(x, torch.randn(16, 1, 7, 7, device=cuda), 1, 1, (3, 3, 3, 3))
+    with pytest.raises(RuntimeError, match="no backward"):
+        dwconv.depthwise_conv_cuda(x, weight.requires_grad_(True), 1, 1, (1, 1, 1, 1))
+    empty = torch.empty((0, 16, 9, 9), dtype=torch.bfloat16, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    dwconv.reset_launches()
+    assert dwconv.depthwise_conv_cuda(empty, weight.detach(), 1, 1, (1, 1, 1, 1)).shape == (
+        0, 16, 9, 9)
+    assert dwconv.LAUNCHES == 0

@@ -170,15 +170,15 @@ def _grads_on_same_crops(cfg, jstate, port_model, batch, bank, backgrounds=None)
     # A ReLU input within the two forwards' roundoff (~1e-6) of 0 may take
     # the other side in the other package and move its gradient entry; the
     # comparison holds to roundoff only on a batch that has none.
-    # (each of these batch norms applies the ReLU itself, `relu=True`: the
+    # (each of these batch norms applies the ReLU itself, `act="relu"`: the
     # margin is read from its output before it)
     margins = []
 
     def record_margin(forward):
-        def wrapped(x, relu=False):
+        def wrapped(x, act="none"):
             y = forward(x)
             margins.append(float(y.detach().abs().min()))
-            return torch.nn.functional.relu(y) if relu else y
+            return torch.nn.functional.relu(y) if act == "relu" else y
         return wrapped
 
     for name, mod in m.named_modules():
